@@ -1,0 +1,186 @@
+"""The port's Barnes-Hut pipeline against the JAX package, from the same y.
+
+Codes, sort order and the linear quadtree must be identical; summaries,
+BH repulsion and the full BH gradient must agree to the stated tolerances.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core import attractive as jattractive  # noqa: E402
+from repro.core import exact as jexact  # noqa: E402
+from repro.core import similarity as jsim  # noqa: E402
+from repro.core import tsne as jtsne  # noqa: E402
+from repro.core.bsp import binary_search_perplexity as jbsp  # noqa: E402
+from repro.core.knn import knn as jknn  # noqa: E402
+from repro.core.morton import morton_encode as jmorton_encode  # noqa: E402
+from repro.core.morton import span_radius as jspan  # noqa: E402
+from repro.core.quadtree import build_quadtree as jbuild  # noqa: E402
+from repro.core.quadtree import sort_points_by_code as jsort  # noqa: E402
+from repro.core.repulsive import bh_repulsion_sorted as jrep  # noqa: E402
+from repro.core.summarize import summarize as jsumm  # noqa: E402
+from repro_torch.core import attractive, exact, morton, quadtree  # noqa: E402
+from repro_torch.core.repulsive import bh_repulsion_sorted  # noqa: E402
+from repro_torch.core.summarize import TreeSummary, summarize  # noqa: E402
+from repro_torch.core.tsne import bh_gradient  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+T = torch.as_tensor
+
+
+def make_points(n, seed=0, clusters=4, dim=2, std=0.2):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(clusters, dim)) * 3.0
+    lab = rng.integers(0, clusters, size=n)
+    return (centers[lab] + rng.normal(size=(n, dim)) * std).astype(np.float32)
+
+
+def both_trees(y, depth, compress):
+    """(jax tree pieces, torch tree pieces) from the same points."""
+    yj = jnp.asarray(y)
+    cent, r = jspan(yj)
+    cs, ys, perm = jsort(yj, jmorton_encode(yj, cent, r, depth=depth))
+    jt = jbuild(cs, depth=depth, compress=compress)
+    yt = T(y)
+    cent_t, r_t = morton.span_radius(yt)
+    cs_t, ys_t, perm_t = quadtree.sort_points_by_code(
+        yt, ops.morton_encode(yt, cent_t, r_t, depth=depth))
+    tt = quadtree.build_quadtree(cs_t, depth=depth, compress=compress)
+    return (cs, ys, perm, jt, r), (cs_t, ys_t, perm_t, tt, r_t)
+
+
+@pytest.mark.parametrize("compress", [True, False])
+@pytest.mark.parametrize("n,depth,seed", [(300, 16, 1), (257, 8, 2), (64, 16, 3)])
+def test_tree_identical_to_jax(n, depth, seed, compress):
+    y = make_points(n, seed=seed)
+    (cs, ys, perm, jt, _), (cs_t, ys_t, perm_t, tt, _) = both_trees(y, depth, compress)
+    np.testing.assert_array_equal(cs_t.numpy(), np.asarray(cs).astype(np.int64))
+    np.testing.assert_array_equal(perm_t.numpy(), np.asarray(perm))  # stable sort
+    np.testing.assert_array_equal(ys_t.numpy(), np.asarray(ys))
+    assert int(tt.n_nodes) == int(jt.n_nodes)
+    assert tt.capacity == jt.capacity
+    for field in ("start", "end", "level", "skip"):
+        np.testing.assert_array_equal(getattr(tt, field).numpy(),
+                                      np.asarray(getattr(jt, field)), err_msg=field)
+    np.testing.assert_array_equal(tt.is_leaf.numpy(), np.asarray(jt.is_leaf))
+
+
+def test_tree_with_duplicate_points():
+    y = np.repeat(make_points(40, seed=4), 3, axis=0)
+    (_, _, _, jt, _), (_, _, _, tt, _) = both_trees(y, 16, True)
+    assert int(tt.n_nodes) == int(jt.n_nodes)
+    for field in ("start", "end", "level", "skip"):
+        np.testing.assert_array_equal(getattr(tt, field).numpy(),
+                                      np.asarray(getattr(jt, field)))
+
+
+def test_summaries_and_repulsion_match_jax():
+    y = make_points(400, seed=13)
+    (_, ys, _, jt, r), (_, ys_t, _, tt, r_t) = both_trees(y, 16, True)
+    js = jsumm(jt, ys, r)
+    ts = summarize(tt, ys_t, r_t)
+    # fp32 prefix sums, possibly summed in another order.  A node's sum_y
+    # is a difference of two prefix sums, so its error scales with the
+    # whole set's |sum y| (~2e3 here), not the node's: atol 1e-3 for it,
+    # and 1e-4 for com (that error over a count >= 1, at |y| ~ 10)
+    for field, atol in (("count", 0), ("sum_y", 1e-3), ("com", 1e-4), ("side", 0)):
+        np.testing.assert_allclose(getattr(ts, field).numpy(),
+                                   np.asarray(getattr(js, field)),
+                                   rtol=1e-5, atol=atol, err_msg=field)
+    jr = jrep(ys, jt, js, 0.5)
+    f_ref = np.asarray(jr.force)
+    scale = np.abs(f_ref).max()
+    # the traversal alone, on the reference's own summaries: fp32 rounding
+    same = bh_repulsion_sorted(ys_t, tt, TreeSummary(*(T(np.array(a)) for a in js)), 0.5)
+    np.testing.assert_allclose(same.force.numpy(), f_ref, rtol=1e-5, atol=1e-6 * scale)
+    np.testing.assert_array_equal(same.steps.numpy(), np.asarray(jr.steps))
+    # on the port's summaries: a COM rounded 1e-5 apart moves a near
+    # neighbor's force by ~1e-5 of the largest force
+    tr = bh_repulsion_sorted(ys_t, tt, ts, 0.5)
+    np.testing.assert_allclose(tr.force.numpy(), f_ref, rtol=1e-4, atol=1e-5 * scale)
+    np.testing.assert_allclose(float(tr.z_per_point.sum()), float(jnp.sum(jr.z_per_point)),
+                               rtol=1e-5)
+    np.testing.assert_array_equal(tr.steps.numpy(), np.asarray(jr.steps))
+
+
+def test_coincident_points_no_nan():
+    y = np.zeros((32, 2), np.float32)
+    (_, _, _, _, _), (_, ys_t, perm_t, tt, r_t) = both_trees(y, 16, True)
+    rep = bh_repulsion_sorted(ys_t, tt, summarize(tt, ys_t, r_t), 0.5)
+    f = rep.force.numpy()
+    z = float(rep.z_per_point.sum())
+    assert np.isfinite(f).all() and np.isfinite(z)
+    np.testing.assert_allclose(f, 0.0, atol=1e-6)
+    # z = sum over ordered pairs of (1+0)^-1 = n(n-1)
+    np.testing.assert_allclose(z, 32 * 31, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def graph200():
+    """A 200-point symmetric graph built by the JAX package, as numpy."""
+    n, k, perp = 200, 24, 8.0
+    x = make_points(n, seed=47, dim=12)
+    idx, d2 = jknn(jnp.asarray(x), k)
+    cond_p, _ = jbsp(d2, perp)
+    sym_cols, sym_vals = jsim.symmetrize_ell(idx, cond_p)
+    p_dense = jsim.dense_p_matrix(idx, cond_p)
+    edges = tuple(np.array(a) for a in jsim.edge_list(idx, cond_p))
+    return sym_cols, sym_vals.astype(np.float32), p_dense.astype(np.float32), edges
+
+
+@pytest.mark.parametrize("theta,exag,layout", [(0.5, 12.0, "ell"), (0.2, 1.0, "ell"),
+                                               (0.5, 4.0, "edges")])
+def test_bh_gradient_matches_jax(graph200, theta, exag, layout):
+    cols, vals, _, edges = graph200
+    y = make_points(200, seed=53)
+    j_edges = tuple(jnp.asarray(a) for a in edges) if layout == "edges" else None
+    t_edges = tuple(T(a) for a in edges) if layout == "edges" else None
+    jres = jtsne.bh_gradient(jnp.asarray(y), jnp.asarray(cols), jnp.asarray(vals),
+                             j_edges, theta=theta, exaggeration=exag, depth=16,
+                             p_logp=-3.0)
+    tres = bh_gradient(T(y), T(cols), T(vals), t_edges, theta=theta, exaggeration=exag,
+                       depth=16, p_logp=T(np.float32(-3.0)))
+    # same tree and walk; fp32 sums in another order
+    np.testing.assert_allclose(tres.grad.numpy(), np.asarray(jres.grad), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(float(tres.kl), float(jres.kl), rtol=1e-5)
+    np.testing.assert_allclose(float(tres.z), float(jres.z), rtol=1e-5)
+    assert int(tres.max_traversal) == int(jres.max_traversal)
+
+
+def test_bh_gradient_theta0_matches_exact(graph200):
+    cols, vals, p_dense, _ = graph200
+    y = make_points(200, seed=53)
+    res = bh_gradient(T(y), T(cols), T(vals), None, theta=0.0, exaggeration=1.0,
+                      depth=16, p_logp=0.0)
+    g_ex = np.asarray(jexact.exact_gradient(jnp.asarray(y), jnp.asarray(p_dense)))
+    # the bound of tests/test_core_tsne.py::test_bh_gradient_matches_exact
+    np.testing.assert_allclose(res.grad.numpy(), g_ex, rtol=5e-3, atol=1e-6)
+    g_port = exact.exact_gradient(T(y), T(p_dense)).numpy()
+    np.testing.assert_allclose(g_port, g_ex, rtol=1e-4, atol=1e-7)
+
+
+def test_exact_module_matches_jax(graph200):
+    _, _, p_dense, _ = graph200
+    y = make_points(200, seed=59)
+    f, z = exact.exact_repulsion(T(y))
+    jf, jz = jexact.exact_repulsion(jnp.asarray(y))
+    np.testing.assert_allclose(f.numpy(), np.asarray(jf), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(float(z), float(jz), rtol=1e-5)
+    np.testing.assert_allclose(float(exact.exact_kl(T(y), T(p_dense))),
+                               float(jexact.exact_kl(jnp.asarray(y), jnp.asarray(p_dense))),
+                               rtol=1e-4)
+
+
+def test_attractive_edges_matches_jax(graph200):
+    _, _, _, edges = graph200
+    y = make_points(200, seed=61)
+    f, kl = attractive.attractive_forces_edges(T(y), *(T(a) for a in edges))
+    jf, jkl = jattractive.attractive_forces_edges(jnp.asarray(y),
+                                                   *(jnp.asarray(a) for a in edges))
+    # scatter-adds in another order: fp32 rtol 1e-5 of the largest force
+    np.testing.assert_allclose(f.numpy(), np.asarray(jf), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(np.asarray(jf)).max()))
+    np.testing.assert_allclose(float(kl), float(jkl), rtol=1e-5)
