@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU: build, check, fit, report.
 
     python3 chip_smoke.py                  # the full run: one card, no arguments
-    python3 chip_smoke.py --n-iter 10      # shorter descent, same phases
+    python3 chip_smoke.py --n-iter 10      # shorter descents (both fits), same phases
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -15,20 +15,35 @@ result line):
                with the tolerance stated beside each check; CUDA-event
                timings (median of several runs) of kernel, plain version
                and, where one exists, a single PyTorch library call.
-4. gradient -- bh_gradient at a fixed y, N = 5 000, on the card against
-               the port's own CPU path; and a small fit (N = 500) on the
-               card against the same fit on the CPU.
+               The FFT path's spread and gather are also checked at
+               128 boxes (a lattice beyond shared memory) and exactly on
+               planted lattice-node points.
+4. gradient -- bh_gradient and fft_repulsion at a fixed y, N = 5 000, on
+               the card against the port's own CPU path; and small fits
+               (N = 500, Barnes-Hut and FFT) on the card against the same
+               fits on the CPU.
 5. fit      -- repro_torch.api.TSNE(method="barnes_hut",
                neighbor_method="exact", perplexity=30, random_state=0) on
                make_dataset("mnist") (70 000 x 784), with every kernel's
-               launch count reset before and read after; all four must be
-               > 0, and the embedding and KL must be finite.  300 descent
-               steps (150 exaggerated) instead of the default 1 000 keep
-               the script well inside its time limit.
-6. breakdown -- one descent step at the fitted embedding, stage by stage
-               (Morton, sort, tree, summaries, traversal, attractive,
-               update), to show where a step's time goes; and the card's
-               busy time over one more step from a torch.profiler trace.
+               launch count reset before and read after; pairwise, bsp,
+               morton and attractive must be > 0, and the embedding and KL
+               must be finite.  300 descent steps (150 exaggerated)
+               instead of the default 1 000 keep the script well inside
+               its time limit.
+6. breakdown -- one Barnes-Hut step at the fitted embedding, stage by
+               stage (Morton, sort, tree, summaries, traversal,
+               attractive, update), to show where a step's time goes; and
+               the card's busy time over one more step from a
+               torch.profiler trace.
+7. fft fit  -- the same fit with method="fft" (48 boxes a dimension) and
+               the default 1 000 steps (250 exaggerated); pairwise, bsp,
+               attractive, fft_spread and fft_gather must be > 0, with
+               spread = gather = attractive = steps run.
+8. fft breakdown -- one FFT step at its fitted embedding, stage by stage
+               (coords, spread, convolution, gather, attractive, update),
+               and the card's busy share from a torch.profiler trace.
+
+Every kernel must be launched by at least one of the two fits.
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -113,7 +128,9 @@ def phase_build() -> None:
 
 
 def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
-    from repro_torch.core import _pairwise, attractive, bsp, knn, morton, similarity
+    from repro_torch.core import (
+        _pairwise, attractive, bsp, fft_repulsion, knn, morton, similarity,
+    )
     from repro_torch.kernels import ops
 
     reg = ops.kernel_registry()
@@ -197,11 +214,73 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
         cuda_ms(lambda: attractive.attractive_forces_ell(y, cols, vals)),
         flops=13.0 * nw, nbytes=8.0 * nw + 8.0 * n + 8.0 * n + 4.0)
     log(f"graph: N={n} K={k} W={cols.shape[1]}")
+
+    # fft_spread / fft_gather on the same N points: 48 boxes (97 x 97 nodes,
+    # the shared-memory spread) for the rows, 128 boxes (257 x 257, the
+    # global-memory spread) checked too
+    for n_boxes in (48, fft_repulsion.MAX_N_BOXES):
+        base, wx, wy, _ = fft_repulsion.interp_coords(y, n_boxes)
+        charges = torch.stack([torch.ones_like(y[:, 0]), y[:, 0], y[:, 1]], dim=1)
+        nodes = 2 * n_boxes + 1
+        g_k = ops.fft_spread_cuda(base, wx, wy, charges, nodes)
+        g_p = fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes)
+        # float atomics sum each node in a run-dependent order: rtol 1e-4
+        # with a floor at 1e-5 of the largest node value
+        g_scale = float(g_p.abs().max())
+        if not torch.allclose(g_k, g_p, rtol=1e-4, atol=1e-5 * g_scale):
+            fail(f"fft_spread kernel disagrees at {n_boxes} boxes: max |d| "
+                 f"{float((g_k - g_p).abs().max()):.3e} of max {g_scale:.3e}")
+        pot = torch.randn((nodes, nodes, 4), generator=gen).to(dev)
+        ph_k = ops.fft_gather_cuda(pot, base, wx, wy)
+        ph_p = fft_repulsion.gather_from_grid(pot, base, wx, wy)
+        # the same products and sum order as the plain version: rtol 1e-5,
+        # with a floor at 1e-6 of the largest value where the 9 taps'
+        # signed Lagrange weights cancel
+        ph_scale = float(ph_p.abs().max())
+        if not torch.allclose(ph_k, ph_p, rtol=1e-5, atol=1e-6 * ph_scale):
+            fail(f"fft_gather kernel disagrees at {n_boxes} boxes: max |d| "
+                 f"{float((ph_k - ph_p).abs().max()):.3e} of max {ph_scale:.3e}")
+        log(f"fft interp {n_boxes} boxes: spread max_abs_err "
+            f"{float((g_k - g_p).abs().max()):.3e} (max {g_scale:.3e}; rtol 1e-4, "
+            f"atol 1e-5 x max), gather max_abs_err {float((ph_k - ph_p).abs().max()):.3e} "
+            f"(max {ph_scale:.3e}; rtol 1e-5, atol 1e-6 x max)")
+
+        # planted lattice-node points: one-hot weights, integer charges;
+        # every partial sum is an exact integer, so both must be exact
+        pb = torch.randint(0, n_boxes, (n, 2), generator=gen, dtype=torch.int32) * 2
+        taps = torch.randint(0, 3, (n, 2), generator=gen)
+        pwx = torch.nn.functional.one_hot(taps[:, 0], 3).float()
+        pwy = torch.nn.functional.one_hot(taps[:, 1], 3).float()
+        pch = torch.randint(1, 5, (n, 3), generator=gen).float()
+        ppot = torch.randint(-9, 9, (nodes, nodes, 4), generator=gen).float()
+        pb, pwx, pwy, pch, ppot = (t.to(dev) for t in (pb, pwx, pwy, pch, ppot))
+        if not torch.equal(ops.fft_spread_cuda(pb, pwx, pwy, pch, nodes),
+                           fft_repulsion.spread_to_grid(pb, pwx, pwy, pch, nodes)):
+            fail(f"fft_spread kernel is not exact on planted nodes at {n_boxes} boxes")
+        if not torch.equal(ops.fft_gather_cuda(ppot, pb, pwx, pwy),
+                           fft_repulsion.gather_from_grid(ppot, pb, pwx, pwy)):
+            fail(f"fft_gather kernel is not exact on planted nodes at {n_boxes} boxes")
+        log(f"fft interp {n_boxes} boxes: planted-node spread and gather exact")
+
+        if n_boxes == 48:
+            row("fft_spread", float((g_k - g_p).abs().max()),
+                cuda_ms(lambda: ops.fft_spread_cuda(base, wx, wy, charges, nodes), inner=20),
+                cuda_ms(lambda: fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes)),
+                # 9 tap weights + 27 products + 27 adds a point; base,
+                # weights and charges read once, the grid written once
+                flops=63.0 * n, nbytes=44.0 * n + 4.0 * nodes * nodes * 3)
+            row("fft_gather", float((ph_k - ph_p).abs().max()),
+                cuda_ms(lambda: ops.fft_gather_cuda(pot, base, wx, wy), inner=20),
+                cuda_ms(lambda: fft_repulsion.gather_from_grid(pot, base, wx, wy)),
+                # 9 tap weights + 36 products + 36 adds a point; base and
+                # weights read, phi written, the potential read once
+                flops=81.0 * n, nbytes=32.0 * n + 16.0 * n + 4.0 * nodes * nodes * 4)
     return rows
 
 
 def phase_gradient(x: torch.Tensor) -> None:
     from repro_torch.api import TSNE
+    from repro_torch.core.fft_repulsion import fft_repulsion
     from repro_torch.core.tsne import TsneConfig, bh_gradient, preprocess
 
     n = 5000
@@ -226,26 +305,45 @@ def phase_gradient(x: torch.Tensor) -> None:
     if not rel < 1e-3 or not abs(kl_gpu - kl_cpu) <= 1e-4 * abs(kl_cpu):
         fail("bh_gradient on the card disagrees with the CPU path")
 
+    def fft_on(dev):
+        f, z = fft_repulsion(torch.as_tensor(y, device=dev), n_boxes=48)
+        return f.cpu(), float(z)
+
+    f_gpu, z_gpu = fft_on(x.device)
+    f_cpu, z_cpu = fft_on("cpu")
+    rel = float(torch.linalg.norm(f_gpu - f_cpu) / torch.linalg.norm(f_cpu))
+    z_rel = abs(z_gpu - z_cpu) / abs(z_cpu)
+    # cuFFT vs pocketfft and the spread's atomics order: forces to 1e-4
+    # relative, z to 1e-5
+    log(f"fft_repulsion N={n}, 48 boxes: |f_gpu - f_cpu| / |f_cpu| = {rel:.3e}, "
+        f"z gpu {z_gpu:.6f} cpu {z_cpu:.6f} (rel {z_rel:.3e})")
+    if not rel <= 1e-4 or not z_rel <= 1e-5:
+        fail("fft_repulsion on the card disagrees with the CPU path")
+
     xs = x[:500].cpu().numpy()
     y0 = 1e-4 * rng.normal(size=(500, 2)).astype(np.float32)
-    kls = {}
-    for dev in (x.device, "cpu"):
-        est = TSNE(perplexity=15.0, n_iter=100, kl_every=50, random_state=0, device=dev)
-        est.fit(xs, y0=y0)
-        kls[str(dev)] = est.kl_divergence_
-    log(f"small fit N=500, 100 iterations: KL {kls}")
-    a, b = kls.values()
-    # trajectories drift apart through float order only; 2% on the final KL
-    if not (np.isfinite(a) and abs(a - b) <= 0.02 * abs(b)):
-        fail("small fit on the card disagrees with the CPU fit")
+    def small_fit_kl(method, dev):
+        est = TSNE(method=method, perplexity=15.0, n_iter=100, kl_every=50,
+                   random_state=0, device=dev)
+        return est.fit(xs, y0=y0).kl_divergence_
+
+    for method in ("barnes_hut", "fft"):
+        a, b = (small_fit_kl(method, dev) for dev in (x.device, "cpu"))
+        log(f"small {method} fit N=500, 100 iterations: KL card {a} cpu {b}")
+        # trajectories drift apart through float order only; 2% on the final KL
+        if not (np.isfinite(a) and abs(a - b) <= 0.02 * abs(b)):
+            fail(f"small {method} fit on the card disagrees with the CPU fit")
 
 
-def phase_fit(x_np: np.ndarray, n_iter: int, exag_iters: int, kl_every: int):
+def phase_fit(x_np: np.ndarray, method: str, n_iter: int, exag_iters: int,
+              kl_every: int):
+    """One fit through the estimator, every launch count reset before it
+    and read after it.  Returns (estimator, launches)."""
     from repro_torch.api import TSNE
     from repro_torch.kernels import ops
 
     stats = []
-    est = TSNE(method="barnes_hut", neighbor_method="exact", perplexity=30,
+    est = TSNE(method=method, neighbor_method="exact", perplexity=30,
                random_state=0, n_iter=n_iter, kl_every=kl_every, verbose=1,
                callbacks=[stats.append],
                backend_options=dict(knn_block_q=KNN_BLOCK_Q, knn_block_db=KNN_BLOCK_DB,
@@ -258,48 +356,101 @@ def phase_fit(x_np: np.ndarray, n_iter: int, exag_iters: int, kl_every: int):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     t = est.timings_
-    log("fit phases (s): " + json.dumps(
+    log(f"{method} fit phases (s): " + json.dumps(
         {k: t[k] for k in ("knn", "bsp", "symmetrize", "gradient_descent")}))
-    log(f"fit: wall {wall:.2f} s, {t['gradient_descent'] / est.n_iter_:.4f} s per "
-        f"descent step over {est.n_iter_} steps")
-    log("fit KL checkpoints: " + json.dumps([[int(i), float(v)] for i, v in est.kl_history_]))
-    log(f"fit max_traversal: {max(s.max_traversal for s in stats)}")
-    log(f"fit launches: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        fail(f"the fit never launched: {missing}")
+    log(f"{method} fit: wall {wall:.2f} s, {t['gradient_descent'] / est.n_iter_:.6f} s "
+        f"per descent step over {est.n_iter_} steps")
+    log(f"{method} fit KL checkpoints: " + json.dumps(
+        [[int(i), float(v)] for i, v in est.kl_history_]))
+    log(f"{method} fit max_traversal: {max(s.max_traversal for s in stats)}")
+    log(f"{method} fit launches: {json.dumps(launches)}")
     emb = est.embedding_
     if emb.shape != (x_np.shape[0], 2) or not np.isfinite(emb).all():
-        fail(f"embedding not finite or of wrong shape {emb.shape}")
+        fail(f"{method}: embedding not finite or of wrong shape {emb.shape}")
     if not np.isfinite(est.kl_divergence_):
-        fail("final KL is not finite")
+        fail(f"{method}: final KL is not finite")
     return est, launches
 
 
+def check_launches(method: str, launches: dict, needed: tuple, steps: int | None = None):
+    """Each kernel of the path launched; per-step kernels once a step."""
+    missing = [k for k in needed if launches[k] <= 0]
+    if missing:
+        fail(f"the {method} fit never launched: {missing}")
+    if steps is not None:
+        per_step = {k: launches[k] for k in ("attractive_ell", "fft_spread", "fft_gather")}
+        if any(v != steps for v in per_step.values()):
+            fail(f"the {method} fit ran {steps} steps but launched {per_step}")
+
+
+def device_busy(fn) -> tuple[float, dict]:
+    """Seconds of CUDA kernel time in one call of ``fn`` from a
+    torch.profiler trace: the summed durations of the kernel events (CPU
+    ops' device time would count each kernel twice), and the same by
+    kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return sum(by_kernel.values()) * 1e-6, by_kernel
+
+
+def add_busy_share(out: dict, fn, total: float) -> None:
+    """out gains device_busy_s and device_idle_share (busy time of one
+    profiled ``fn`` over the unprofiled step time ``total``)."""
+    busy_s, by_kernel = device_busy(fn)
+    if busy_s > 0:
+        out["device_busy_s"] = busy_s
+        out["device_idle_share"] = 1.0 - min(1.0, busy_s / total)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        log("step device time by kernel (ms): " + json.dumps(
+            {k[:70]: v * 1e-3 for k, v in top}))
+    else:
+        log("step device time: not measured (the profiler recorded no kernel)")
+
+
+class Laps:
+    """Seconds of consecutive stages, the device synchronised at each mark."""
+
+    def __init__(self):
+        self.t: dict[str, float] = {}
+        torch.cuda.synchronize()
+        self.mark = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.t[name] = now - self.mark
+        self.mark = now
+
+
+def median_laps(runs: list[dict]) -> dict:
+    out = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    out["total"] = sum(out.values())
+    return out
+
+
 def phase_breakdown(est) -> dict:
-    """Seconds of each stage of one descent step at the fitted embedding
+    """Seconds of each stage of one Barnes-Hut step at the fitted embedding
     (device synchronised around each stage; median of 3 steps)."""
     from repro_torch.core import morton, quadtree
     from repro_torch.core.repulsive import bh_repulsion_sorted
     from repro_torch.core.summarize import summarize
-    from repro_torch.core.tsne import TsneState, combine_forces, gd_update
+    from repro_torch.core.tsne import TsneState, bh_gradient, combine_forces, gd_update
     from repro_torch.kernels import ops
 
     g = est.neighbor_graph_
     y = torch.as_tensor(est.embedding_).cuda()
     state = TsneState(y=y, velocity=torch.zeros_like(y), gains=torch.ones_like(y),
                       iteration=0)
-    runs = []
+    runs, max_traversal = [], 0
     for _ in range(3):
-        t = {}
-        mark = [time.perf_counter()]
-
-        def lap(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            t[name] = now - mark[0]
-            mark[0] = now
-
+        lap = Laps()
         cent, r_span = morton.span_radius(y)
         codes = ops.morton_encode(y, cent, r_span, depth=16)
         lap("morton_encode")
@@ -319,49 +470,80 @@ def phase_breakdown(est) -> dict:
                              g.p_logp, torch.max(rep.steps))
         gd_update(state, res.grad, est.learning_rate_, 0.8, 0.01)
         lap("combine_and_update")
-        t["max_traversal"] = int(res.max_traversal)
-        runs.append(t)
-    out = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
-    total = sum(v for k, v in out.items() if k != "max_traversal")
-    out["total"] = total
-    out["traversal_share"] = out["traversal"] / total
-
-    # device busy time of one BH gradient from a torch.profiler trace: the
-    # summed durations of the CUDA kernel events (CPU ops' device time
-    # would count each kernel twice); the share divides it by the
-    # unprofiled step time measured above
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.tsne import bh_gradient
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        bh_gradient(y, g.p_cols, g.p_vals, None, 0.5, 1.0, 16, g.p_logp)
-        torch.cuda.synchronize()
-    by_kernel: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy_us = sum(by_kernel.values())
-    if busy_us > 0:
-        out["device_busy_s"] = busy_us * 1e-6
-        out["device_idle_share"] = 1.0 - min(1.0, out["device_busy_s"] / total)
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-        log("step device time by kernel (ms): " + json.dumps(
-            {k[:70]: v * 1e-3 for k, v in top}))
-    else:
-        log("step device time: not measured (the profiler recorded no kernel)")
-    log("step breakdown at the fitted embedding (s): " + json.dumps(out))
+        max_traversal = int(res.max_traversal)
+        runs.append(lap.t)
+    out = median_laps(runs)
+    out["max_traversal"] = max_traversal
+    out["traversal_share"] = out["traversal"] / out["total"]
+    # the card's busy time over one BH gradient, against the whole step
+    add_busy_share(out, lambda: bh_gradient(y, g.p_cols, g.p_vals, None, 0.5, 1.0, 16,
+                                            g.p_logp), out["total"])
+    log("bh step breakdown at the fitted embedding (s): " + json.dumps(out))
     return out
+
+
+def phase_fft_breakdown(est) -> dict:
+    """Seconds of each stage of one FFT step at the fitted embedding
+    (device synchronised around each stage; median of 10 steps)."""
+    from repro_torch.api import make_backend
+    from repro_torch.core import fft_repulsion as fr
+    from repro_torch.core.tsne import (
+        TsneConfig, TsneState, combine_forces, gd_update, tsne_step,
+    )
+    from repro_torch.kernels import ops
+
+    g = est.neighbor_graph_
+    y = torch.as_tensor(est.embedding_).cuda()
+    state = TsneState(y=y, velocity=torch.zeros_like(y), gains=torch.ones_like(y),
+                      iteration=0)
+    backend = make_backend("fft", TsneConfig(), y.shape[0])   # the fit's: 48 boxes
+    n_boxes = backend.n_boxes
+    nodes = 2 * n_boxes + 1
+    runs = []
+    for _ in range(10):
+        lap = Laps()
+        base, wx, wy, h = fr.interp_coords(y, n_boxes)
+        charges = torch.stack([torch.ones_like(y[:, 0]), y[:, 0], y[:, 1]], dim=1)
+        lap("coords")
+        grid = ops.fft_spread(base, wx, wy, charges, nodes)
+        lap("spread")
+        pot = fr.convolve(grid, h)
+        lap("convolution")
+        phi = ops.fft_gather(pot, base, wx, wy)
+        lap("gather")
+        f_attr, kl_attr = ops.attractive_ell(y, g.p_cols, g.p_vals)
+        lap("attractive")
+        f_rep, z = fr.forces_from_potentials(y, phi)
+        res = combine_forces(f_attr, kl_attr, f_rep, z, 1.0, g.p_logp)
+        gd_update(state, res.grad, est.learning_rate_, 0.8, 0.01)
+        lap("combine_and_update")
+        runs.append(lap.t)
+    out = median_laps(runs)
+    # the card's busy time over one whole descent step (gradient + update)
+    add_busy_share(out, lambda: tsne_step(state, g, 1.0, 0.8, backend=backend,
+                                          lr=est.learning_rate_, min_gain=0.01),
+                   out["total"])
+    log("fft step breakdown at the fitted embedding (s): " + json.dumps(out))
+    return out
+
+
+BH_KERNELS = ("pairwise_sq_dists", "bsp_search", "morton_encode", "attractive_ell")
+FFT_KERNELS = ("pairwise_sq_dists", "bsp_search", "attractive_ell", "fft_spread",
+               "fft_gather")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n-iter", type=int, default=300)
-    ap.add_argument("--exaggeration-iters", type=int, default=150)
+    ap.add_argument("--n-iter", type=int, default=None,
+                    help="descent steps of both fits (default: 300 Barnes-Hut, 1000 FFT)")
+    ap.add_argument("--exaggeration-iters", type=int, default=None,
+                    help="exaggerated steps of both fits (default: 150 Barnes-Hut, 250 FFT)")
     ap.add_argument("--kl-every", type=int, default=50)
     args = ap.parse_args()
 
     phase_device()
     from repro_torch.data.datasets import make_dataset
+    from repro_torch.kernels import ops
     phase_build()
 
     x_np, _ = make_dataset("mnist")
@@ -369,10 +551,26 @@ def main() -> None:
     perplexity = 30.0
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
-    est, launches = phase_fit(x_np, args.n_iter, args.exaggeration_iters, args.kl_every)
+
+    def steps(default_iter, default_exag):
+        n_iter = default_iter if args.n_iter is None else args.n_iter
+        exag = default_exag if args.exaggeration_iters is None else args.exaggeration_iters
+        return n_iter, exag
+
+    est, bh_launches = phase_fit(x_np, "barnes_hut", *steps(300, 150), args.kl_every)
+    check_launches("barnes_hut", bh_launches, BH_KERNELS)
     phase_breakdown(est)
+    est, fft_launches = phase_fit(x_np, "fft", *steps(1000, 250), args.kl_every)
+    check_launches("fft", fft_launches, FFT_KERNELS, steps=est.n_iter_)
+    phase_fft_breakdown(est)
+
+    unlaunched = [k for k in ops.LAUNCHES if bh_launches[k] + fft_launches[k] == 0]
+    if unlaunched:
+        fail(f"neither fit launched {unlaunched}")
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        path = "barnes_hut" if r["name"] in BH_KERNELS else "fft"
+        r["path"] = path
+        r["launches"] = (bh_launches if path == "barnes_hut" else fft_launches)[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,15 @@
 
     from repro_torch.api import TSNE
     emb = TSNE(method="barnes_hut", perplexity=30).fit_transform(x)   # on cuda
+    emb = TSNE(method="fft", device="cpu").fit_transform(x)           # FIt-SNE, CPU
 """
 from repro_torch.core.tsne import (
     GradResult, IterationStats, NeighborGraph, ObserverFn, TsneConfig,
     TsneResult, preprocess, run_tsne,
 )
 from repro_torch.api.backends import (
-    BarnesHutBackend, ExactBackend, GradientBackend, available_backends,
-    make_backend, register_backend, unregister_backend,
+    BarnesHutBackend, ExactBackend, FFTBackend, GradientBackend,
+    available_backends, make_backend, register_backend, unregister_backend,
 )
 from repro_torch.api.estimator import TSNE
 from repro_torch.neighbors import (
@@ -19,7 +20,7 @@ from repro_torch.neighbors import (
 
 __all__ = [
     "TSNE",
-    "GradientBackend", "ExactBackend", "BarnesHutBackend",
+    "GradientBackend", "ExactBackend", "BarnesHutBackend", "FFTBackend",
     "register_backend", "unregister_backend", "available_backends",
     "make_backend",
     "NeighborBackend", "register_neighbor_backend",

@@ -1,6 +1,10 @@
 """Pluggable t-SNE gradient backends + string-keyed registry: port of
-``repro/api/backends.py`` (``exact`` and ``barnes_hut``; ``fft`` comes
-with the FFT slice).
+``repro/api/backends.py``:
+
+* ``exact``       -- the O(N^2) oracle (``core/exact.py``)
+* ``barnes_hut``  -- the paper's Morton/quadtree/summarize/traverse pipeline
+* ``fft``         -- FIt-SNE-style grid-interpolation repulsion
+                     (``core/fft_repulsion.py``, Linderman et al.)
 
 A backend owns steps 3-6 of the pipeline: given the current embedding, the
 :class:`~repro_torch.core.tsne.NeighborGraph` and the exaggeration factor,
@@ -13,7 +17,8 @@ from typing import Callable, ClassVar, Protocol, runtime_checkable
 
 import torch
 
-from repro_torch.core import exact
+from repro_torch.core import attractive, exact
+from repro_torch.core.fft_repulsion import fft_repulsion
 from repro_torch.core.tsne import (
     DEFAULT_ATTRACTIVE_IMPL, GradResult, NeighborGraph, TsneConfig, bh_gradient,
     combine_forces,
@@ -37,6 +42,25 @@ def _check_ell_rows(graph: NeighborGraph, n: int, who: str) -> None:
             f"{who} needs the ELL rows, but this NeighborGraph was "
             "preprocessed edges-only (attractive_impl='edges')"
         )
+
+
+def _check_attractive_layout(graph: NeighborGraph, n: int, attractive_impl: str) -> None:
+    if attractive_impl == "edges":
+        if not graph.has_edges:
+            raise ValueError(
+                "attractive_impl='edges' but the NeighborGraph carries no "
+                "edge list; preprocess with TsneConfig(attractive_impl='edges')"
+            )
+    else:
+        _check_ell_rows(graph, n, f"attractive_impl={attractive_impl!r}")
+
+
+def _attractive(y, graph: NeighborGraph, attractive_impl: str):
+    """Shared attractive-term dispatch (exaggeration-free; callers scale it)."""
+    _check_attractive_layout(graph, y.shape[0], attractive_impl)
+    if attractive_impl == "edges":
+        return attractive.attractive_forces_edges(y, *graph.edges)
+    return attractive.ell_forces(attractive_impl)(y, graph.p_cols, graph.p_vals)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,20 +92,37 @@ class BarnesHutBackend:
     attractive_impl: str = DEFAULT_ATTRACTIVE_IMPL
 
     def gradient(self, y, graph: NeighborGraph, exaggeration) -> GradResult:
-        if self.attractive_impl == "edges":
-            if not graph.has_edges:
-                raise ValueError(
-                    "attractive_impl='edges' but the NeighborGraph carries no "
-                    "edge list; preprocess with TsneConfig(attractive_impl='edges')"
-                )
-        else:
-            _check_ell_rows(graph, y.shape[0], f"attractive_impl={self.attractive_impl!r}")
+        _check_attractive_layout(graph, y.shape[0], self.attractive_impl)
         edges = graph.edges if self.attractive_impl == "edges" else None
         return bh_gradient(
             y, graph.p_cols, graph.p_vals, edges, self.theta, exaggeration,
             self.depth, graph.p_logp, compress_tree=self.compress_tree,
             attractive_impl=self.attractive_impl,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class FFTBackend:
+    """FIt-SNE-style repulsion: interpolate to a grid, convolve via FFT.
+
+    ``interp_impl`` and ``attractive_block`` are kept so that the JAX
+    backend's fields carry across; the tensor's device picks the CUDA
+    spread/gather kernels or their plain versions, and the one ELL
+    attractive kernel has no row block.
+    """
+
+    name: ClassVar[str] = "fft"
+    n_boxes: int = 48
+    attractive_impl: str = DEFAULT_ATTRACTIVE_IMPL
+    interp_impl: str = "xla"
+    attractive_block: int = 512
+
+    def gradient(self, y, graph: NeighborGraph, exaggeration) -> GradResult:
+        f_attr, kl_attr = _attractive(y, graph, self.attractive_impl)
+        f_rep_unnorm, z = fft_repulsion(y, n_boxes=self.n_boxes,
+                                        interp_impl=self.interp_impl)
+        return combine_forces(f_attr, kl_attr, f_rep_unnorm, z, exaggeration,
+                              graph.p_logp)
 
 
 # factory(config, n_points) -> GradientBackend
@@ -132,3 +173,11 @@ def _make_barnes_hut(config: TsneConfig, n: int) -> BarnesHutBackend:
         compress_tree=config.compress_tree,
         attractive_impl=config.attractive_impl,
     )
+
+
+@register_backend("fft")
+def _make_fft(config: TsneConfig, n: int) -> FFTBackend:
+    return FFTBackend(n_boxes=config.fft_n_boxes,
+                      attractive_impl=config.attractive_impl,
+                      interp_impl=config.resolve_fft_interp_impl(),
+                      attractive_block=config.resolve_attractive_block())

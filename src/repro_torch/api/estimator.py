@@ -21,7 +21,8 @@ class TSNE:
     ``random_state`` seeds the embedding init), plus ``device``: ``None``
     means ``cuda`` and raises if no card is present; pass ``"cpu"`` to run
     the plain PyTorch path.  ``backend_options`` overrides ``TsneConfig``
-    fields (e.g. ``{"knn_block_q": 4096}``, ``{"exaggeration_iters": 50}``).
+    fields (e.g. ``{"knn_block_q": 4096}``, ``{"exaggeration_iters": 50}``,
+    ``{"fft_n_boxes": 96}``).
     """
 
     def __init__(

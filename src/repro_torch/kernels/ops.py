@@ -19,12 +19,12 @@ import ctypes
 
 import torch
 
-from repro_torch.core import _pairwise, attractive, bsp, morton
+from repro_torch.core import _pairwise, attractive, bsp, fft_repulsion, morton
 from repro_torch.kernels import build
 
 LAUNCHES: dict[str, int] = {
     "pairwise_sq_dists": 0, "bsp_search": 0, "morton_encode": 0,
-    "attractive_ell": 0,
+    "attractive_ell": 0, "fft_spread": 0, "fft_gather": 0,
 }
 
 _P = ctypes.c_void_p
@@ -35,6 +35,8 @@ _SIGNATURES = {
     "bsp": ("bsp_search", [_P, _P, _P, _I, _I, _F, _F, _I, _P]),
     "morton": ("morton_encode", [_P, _P, _P, _I, _I, _P]),
     "attractive": ("attractive_ell", [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "spread": ("fft_spread", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "gather": ("fft_gather", [_P, _P, _P, _P, _P, _I, _I, _P]),
 }
 
 
@@ -208,6 +210,82 @@ def attractive_ell_cuda(y, cols, vals):
 
 
 # ---------------------------------------------------------------------------
+# fft_spread / fft_gather
+# ---------------------------------------------------------------------------
+
+def _check_interp(base, wx, wy, n_rows: int) -> None:
+    _check("base", base, torch.int32, 2)
+    _check("wx", wx, torch.float32, 2)
+    _check("wy", wy, torch.float32, 2)
+    p = fft_repulsion.P_ORDER
+    if base.shape != (n_rows, 2) or wx.shape != (n_rows, p) or wy.shape != (n_rows, p):
+        raise ValueError(f"expected base [N, 2], wx and wy [N, {p}]; got base "
+                         f"{tuple(base.shape)}, wx {tuple(wx.shape)}, wy {tuple(wy.shape)}")
+
+
+def _check_nodes(nodes: int) -> None:
+    """nodes = n_boxes * (P_ORDER - 1) + 1 with n_boxes in [1, MAX_N_BOXES]."""
+    n_boxes, rem = divmod(nodes - 1, fft_repulsion.P_ORDER - 1)
+    if rem or not 1 <= n_boxes <= fft_repulsion.MAX_N_BOXES:
+        raise ValueError(f"nodes={nodes} is not 2 * n_boxes + 1 with n_boxes in "
+                         f"[1, {fft_repulsion.MAX_N_BOXES}]")
+
+
+def fft_spread(base: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
+               charges: torch.Tensor, nodes: int) -> torch.Tensor:
+    """Spread charges [N, C] onto the lattice: -> grid [nodes, nodes, C] fp32.
+
+    ``base`` must lie in [0, nodes - 3] (``interp_coords`` clips it there).
+    """
+    _check("charges", charges, torch.float32, 2)
+    _check_interp(base, wx, wy, charges.shape[0])
+    _check_nodes(nodes)
+    if _device(base=base, wx=wx, wy=wy, charges=charges).type == "cpu":
+        return fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes)
+    return fft_spread_cuda(base, wx, wy, charges, nodes)
+
+
+def fft_spread_cuda(base, wx, wy, charges, nodes: int) -> torch.Tensor:
+    n, c = charges.shape
+    # zeroed here: the kernel adds into the grid with atomics
+    grid = torch.zeros((nodes, nodes, c), dtype=torch.float32, device=charges.device)
+    if n and c:
+        _launch("fft_spread", "spread", charges.device, base.data_ptr(), wx.data_ptr(),
+                wy.data_ptr(), charges.data_ptr(), grid.data_ptr(), n, nodes, c)
+    return grid
+
+
+def fft_gather(pot: torch.Tensor, base: torch.Tensor, wx: torch.Tensor,
+               wy: torch.Tensor) -> torch.Tensor:
+    """Interpolate pot [nodes, nodes, 4] at the points: -> phi [N, 4] fp32.
+
+    The four channels are fft_repulsion's potentials (the CUDA kernel reads
+    a tap as one float4).  ``base`` must lie in [0, nodes - 3]
+    (``interp_coords`` clips it there).
+    """
+    _check("pot", pot, torch.float32, 3)
+    _check_interp(base, wx, wy, base.shape[0])
+    if pot.shape[0] != pot.shape[1] or pot.shape[2] != 4:
+        raise ValueError(f"pot must be [nodes, nodes, 4], got {tuple(pot.shape)}")
+    _check_nodes(pot.shape[0])
+    if _device(pot=pot, base=base, wx=wx, wy=wy).type == "cpu":
+        return fft_repulsion.gather_from_grid(pot, base, wx, wy)
+    return fft_gather_cuda(pot, base, wx, wy)
+
+
+def fft_gather_cuda(pot, base, wx, wy) -> torch.Tensor:
+    nodes = pot.shape[0]
+    n = base.shape[0]
+    if pot.data_ptr() % 16:
+        raise ValueError("pot must be 16-byte aligned (the kernel reads float4 taps)")
+    phi = torch.empty((n, 4), dtype=torch.float32, device=pot.device)
+    if n:
+        _launch("fft_gather", "gather", pot.device, pot.data_ptr(), base.data_ptr(),
+                wx.data_ptr(), wy.data_ptr(), phi.data_ptr(), n, nodes)
+    return phi
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -248,6 +326,20 @@ def kernel_registry() -> dict:
             tpu="src/repro/kernels/attractive_kernel.py:_attractive_kernel",
             replaces="src/repro/kernels/attractive_kernel.py:26",
             doc="Algorithm 2: attractive forces over ELL rows, gather in-kernel"),
+        "fft_spread": dict(
+            plain=fft_repulsion.spread_to_grid, cuda=fft_spread_cuda,
+            wrapper=fft_spread,
+            source="src/repro_torch/csrc/spread.cu",
+            tpu="src/repro/kernels/interp_kernel.py:_spread_kernel",
+            replaces="src/repro/kernels/interp_kernel.py:52",
+            doc="FFT repulsion: 3x3 Lagrange spread, shared-memory lattice + atomics"),
+        "fft_gather": dict(
+            plain=fft_repulsion.gather_from_grid, cuda=fft_gather_cuda,
+            wrapper=fft_gather,
+            source="src/repro_torch/csrc/gather.cu",
+            tpu="src/repro/kernels/interp_kernel.py:_gather_kernel",
+            replaces="src/repro/kernels/interp_kernel.py:76",
+            doc="FFT repulsion: 3x3 Lagrange gather, one thread a point, float4 taps"),
     }
 
 

@@ -102,10 +102,10 @@ def test_bsp_chunked_matches_whole():
 
 # ----------------------------------------------------------------- registry --
 
-def test_registry_lists_the_four_ported_kernels():
+def test_registry_lists_the_six_ported_kernels():
     reg = ops.kernel_registry()
     assert set(reg) == {"pairwise_sq_dists", "bsp_search", "morton_encode",
-                        "attractive_ell"}
+                        "attractive_ell", "fft_spread", "fft_gather"}
     assert ops.available_kernels() == tuple(sorted(reg))
     for name, entry in reg.items():
         assert {"plain", "cuda", "doc", "tpu", "replaces", "wrapper", "source"} <= set(entry)

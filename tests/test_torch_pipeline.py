@@ -28,7 +28,7 @@ from repro.neighbors import ExactNeighbors as JExactNeighbors  # noqa: E402
 from repro.neighbors import recall_at_k as jrecall_at_k  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.api import (  # noqa: E402
-    TSNE, BarnesHutBackend, ExactBackend, TsneConfig, available_backends,
+    TSNE, BarnesHutBackend, ExactBackend, FFTBackend, TsneConfig, available_backends,
     make_backend, preprocess, run_tsne,
 )
 from repro_torch.core import similarity  # noqa: E402
@@ -203,7 +203,8 @@ def test_tsne_step_matches_jax(jax_fit_inputs):
 
 
 @pytest.mark.parametrize("method,use_pallas", [("barnes_hut", False), ("barnes_hut", True),
-                                               ("exact", False)])
+                                               ("exact", False), ("fft", False),
+                                               ("fft", True)])
 def test_run_tsne_kl_matches_jax(jax_fit_inputs, method, use_pallas):
     x, jcfg, _, jstate = jax_fit_inputs
     jcfg = dataclasses.replace(jcfg, method=method, use_pallas=use_pallas)
@@ -219,13 +220,15 @@ def test_run_tsne_kl_matches_jax(jax_fit_inputs, method, use_pallas):
 
 
 def test_backend_registry_and_config():
-    assert {"exact", "barnes_hut"} <= set(available_backends())
+    assert {"exact", "barnes_hut", "fft"} <= set(available_backends())
     bh = make_backend("barnes_hut", TsneConfig(theta=0.3, compress_tree=False,
                                                depth="auto"), 4096)
     assert isinstance(bh, BarnesHutBackend) and bh.theta == 0.3 and not bh.compress_tree
     assert isinstance(make_backend("exact", TsneConfig(), 10), ExactBackend)
+    fb = make_backend("fft", TsneConfig(fft_n_boxes=64, chunk_size=100), 100)
+    assert isinstance(fb, FFTBackend) and fb.n_boxes == 64 and fb.attractive_block == 100
     with pytest.raises(ValueError, match="unknown t-SNE method"):
-        make_backend("fft", TsneConfig(), 100)
+        make_backend("umap", TsneConfig(), 100)
     with pytest.raises(ValueError, match="unknown bsp_impl"):
         TsneConfig(bsp_impl="numba")
     with pytest.raises(ValueError, match="unknown attractive_impl"):
@@ -275,6 +278,26 @@ def test_estimator_fitted_attributes_match_jax(jax_fit_inputs):
     assert est.get_params()["device"] == torch.device("cpu")
     with pytest.raises(ValueError, match="perplexity"):
         TSNE(device="cpu", perplexity=200.0).fit(x)
+
+
+def test_estimator_fft_backend_options(monkeypatch):
+    x = make_points(120, seed=4, dim=6)
+    seen = []
+    real = FFTBackend.gradient
+
+    def spy(self, y, graph, exaggeration):
+        seen.append(self.n_boxes)
+        return real(self, y, graph, exaggeration)
+
+    monkeypatch.setattr(FFTBackend, "gradient", spy)
+    est = TSNE(method="fft", perplexity=10.0, n_iter=20, kl_every=10, random_state=0,
+               backend_options={"fft_n_boxes": 96}, device="cpu")
+    emb = est.fit_transform(x)
+    assert seen == [96] * 20
+    assert emb.shape == (120, 2) and np.isfinite(emb).all() and np.isfinite(est.kl_divergence_)
+    with pytest.raises(ValueError, match="MAX_N_BOXES"):
+        TSNE(method="fft", perplexity=10.0, n_iter=2, device="cpu",
+             backend_options={"fft_n_boxes": 129}).fit(x)
 
 
 def test_tsne_default_device_needs_a_gpu(monkeypatch):
