@@ -10,14 +10,16 @@ result line):
                limit as nvidia-smi reports them; TF32 off for matmul/cuDNN.
 2. build    -- compiles every kernel in src/repro_torch/csrc (one nvcc per
                source, all in parallel) and prints the seconds it took.
-3. kernels  -- each kernel against its plain PyTorch twin on the card at
+3. kernels  -- each kernel's wrapper (the call the main path makes)
+               against its plain PyTorch twin on the card at
                the main path's shapes (MNIST size, 70 000 x 784, K = 90),
                with the tolerance stated beside each check; CUDA-event
                timings (median of several runs) of kernel, plain version
                and, where one exists, a single PyTorch library call.
                The FFT path's spread and gather are also checked at
                128 boxes (a lattice beyond shared memory) and exactly on
-               planted lattice-node points.
+               planted lattice-node points, boxes overhanging the
+               lattice's edges included.
 4. gradient -- bh_gradient and fft_repulsion at a fixed y, N = 5 000, on
                the card against the port's own CPU path; and small fits
                (N = 500, Barnes-Hut and FFT) on the card against the same
@@ -32,16 +34,19 @@ result line):
                its time limit.
 6. breakdown -- one Barnes-Hut step at the fitted embedding, stage by
                stage (Morton, sort, tree, summaries, traversal,
-               attractive, update), to show where a step's time goes; and
-               the card's busy time over one more step from a
-               torch.profiler trace.
+               attractive, update), to show where a step's time goes,
+               held against the backend's own gradient; and the card's
+               idle share: kernel time from a torch.profiler trace of one
+               descent step over the CUDA-event time a step of several
+               run back to back with no sync, as the fit runs them.
 7. fft fit  -- the same fit with method="fft" (48 boxes a dimension) and
                the default 1 000 steps (250 exaggerated); pairwise, bsp,
                attractive, fft_spread and fft_gather must be > 0, with
                spread = gather = attractive = steps run.
 8. fft breakdown -- one FFT step at its fitted embedding, stage by stage
-               (coords, spread, convolution, gather, attractive, update),
-               and the card's busy share from a torch.profiler trace.
+               (coords, spread, convolution, gather, attractive, update)
+               through the functions fft_repulsion calls, held against
+               the backend's own gradient; and the idle share as in 6.
 
 Every kernel must be launched by at least one of the two fits.
 
@@ -153,7 +158,7 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     q = x[:KNN_BLOCK_Q].contiguous()
     c = x[KNN_BLOCK_Q:KNN_BLOCK_Q + KNN_BLOCK_DB].contiguous()
     qn, cn = torch.sum(q * q, 1), torch.sum(c * c, 1)
-    out = ops.pairwise_sq_dists_cuda(q, c, qn, cn)
+    out = ops.pairwise_sq_dists(q, c, qn, cn)
     ref = _pairwise.pairwise_sq_dists(q, c, qn, cn)
     # the |q|^2+|c|^2-2qc form cancels: its fp32 error scales with the norms
     tol = 2e-4 * ref.abs() + 1e-5 * (qn[:, None] + cn[None, :])
@@ -161,7 +166,7 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
         fail("pairwise_sq_dists kernel disagrees with its plain version")
     nq, nc = q.shape[0], c.shape[0]
     row("pairwise_sq_dists", float((out - ref).abs().max()),
-        cuda_ms(lambda: ops.pairwise_sq_dists_cuda(q, c, qn, cn)),
+        cuda_ms(lambda: ops.pairwise_sq_dists(q, c, qn, cn)),
         cuda_ms(lambda: _pairwise.pairwise_sq_dists(q, c, qn, cn)),
         flops=2.0 * nq * nc * d + 3.0 * nq * nc,
         nbytes=4.0 * ((nq + nc) * d + nq + nc + nq * nc),
@@ -169,7 +174,7 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
 
     # bsp_search on the real [N, K] distances of the main path
     idx, d2 = knn.knn(x, k, KNN_BLOCK_Q, KNN_BLOCK_DB)
-    p_k, b_k = ops.bsp_search_cuda(d2, perplexity)
+    p_k, b_k = ops.bsp_search(d2, perplexity)
     p_p, b_p = bsp.binary_search_perplexity_plain(d2, perplexity)
     # rtol 1e-5: the parity target of the Pallas kernel against XLA
     if not (torch.allclose(p_k, p_p, rtol=1e-5, atol=1e-7)
@@ -178,7 +183,7 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
              f"max |dbeta|/beta {float(((b_k - b_p).abs() / b_p.abs()).max()):.3e}")
     nk = d2.numel()
     row("bsp_search", float((p_k - p_p).abs().max()),
-        cuda_ms(lambda: ops.bsp_search_cuda(d2, perplexity)),
+        cuda_ms(lambda: ops.bsp_search(d2, perplexity)),
         cuda_ms(lambda: bsp.binary_search_perplexity_plain(d2, perplexity), reps=3, inner=1),
         # 65 passes (64 bisection steps + the final one), each an exp and
         # ~5 fp32 operations an entry; d2 read once, cond_p written once
@@ -187,12 +192,12 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     # morton_encode on N points of an embedding-sized spread
     y = (torch.randn((n, 2), generator=gen) * 20.0).to(dev)
     cent, r_span = morton.span_radius(y)
-    codes_k = ops.morton_encode_cuda(y, cent, r_span)
+    codes_k = ops.morton_encode(y, cent, r_span)
     codes_p = morton.morton_encode(y, cent, r_span)
     if not bool((codes_k == codes_p).all()):
         fail("morton_encode kernel is not bit-identical to its plain version")
     row("morton_encode", float((codes_k - codes_p).abs().max()),
-        cuda_ms(lambda: ops.morton_encode_cuda(y, cent, r_span), inner=20),
+        cuda_ms(lambda: ops.morton_encode(y, cent, r_span), inner=20),
         cuda_ms(lambda: morton.morton_encode(y, cent, r_span), inner=20),
         flops=6.0 * n, nbytes=8.0 * n + 8.0 * n + 12.0)
 
@@ -200,7 +205,7 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     sym_cols, sym_vals = similarity.symmetrize_ell(idx.cpu().numpy(), p_k.cpu().numpy())
     cols = torch.as_tensor(sym_cols, device=dev)
     vals = torch.as_tensor(sym_vals / sym_vals.sum(), device=dev).to(torch.float32)
-    f_k, kl_k = ops.attractive_ell_cuda(y, cols, vals)
+    f_k, kl_k = ops.attractive_ell(y, cols, vals)
     f_p, kl_p = attractive.attractive_forces_ell(y, cols, vals)
     # summation order differs (warp tree vs torch reduction): rtol 1e-4 with
     # an absolute floor at 1e-5 of the largest force, KL to 1e-5 relative
@@ -210,7 +215,7 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
         fail("attractive_ell kernel disagrees with its plain version")
     nw = cols.numel()
     row("attractive_ell", float((f_k - f_p).abs().max()),
-        cuda_ms(lambda: ops.attractive_ell_cuda(y, cols, vals), inner=10),
+        cuda_ms(lambda: ops.attractive_ell(y, cols, vals), inner=10),
         cuda_ms(lambda: attractive.attractive_forces_ell(y, cols, vals)),
         flops=13.0 * nw, nbytes=8.0 * nw + 8.0 * n + 8.0 * n + 4.0)
     log(f"graph: N={n} K={k} W={cols.shape[1]}")
@@ -220,9 +225,9 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     # global-memory spread) checked too
     for n_boxes in (48, fft_repulsion.MAX_N_BOXES):
         base, wx, wy, _ = fft_repulsion.interp_coords(y, n_boxes)
-        charges = torch.stack([torch.ones_like(y[:, 0]), y[:, 0], y[:, 1]], dim=1)
-        nodes = 2 * n_boxes + 1
-        g_k = ops.fft_spread_cuda(base, wx, wy, charges, nodes)
+        charges = fft_repulsion.point_charges(y)
+        nodes = fft_repulsion.lattice_nodes(n_boxes)
+        g_k = ops.fft_spread(base, wx, wy, charges, nodes)
         g_p = fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes)
         # float atomics sum each node in a run-dependent order: rtol 1e-4
         # with a floor at 1e-5 of the largest node value
@@ -231,7 +236,7 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
             fail(f"fft_spread kernel disagrees at {n_boxes} boxes: max |d| "
                  f"{float((g_k - g_p).abs().max()):.3e} of max {g_scale:.3e}")
         pot = torch.randn((nodes, nodes, 4), generator=gen).to(dev)
-        ph_k = ops.fft_gather_cuda(pot, base, wx, wy)
+        ph_k = ops.fft_gather(pot, base, wx, wy)
         ph_p = fft_repulsion.gather_from_grid(pot, base, wx, wy)
         # the same products and sum order as the plain version: rtol 1e-5,
         # with a floor at 1e-6 of the largest value where the 9 taps'
@@ -246,31 +251,34 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
             f"(max {ph_scale:.3e}; rtol 1e-5, atol 1e-6 x max)")
 
         # planted lattice-node points: one-hot weights, integer charges;
-        # every partial sum is an exact integer, so both must be exact
-        pb = torch.randint(0, n_boxes, (n, 2), generator=gen, dtype=torch.int32) * 2
+        # every partial sum is an exact integer, so both must be exact.
+        # Boxes from -1 to n_boxes overhang both edges: taps off the
+        # lattice are skipped by kernel and plain version alike
+        pb = torch.randint(-1, n_boxes + 1, (n, 2), generator=gen, dtype=torch.int32) * 2
         taps = torch.randint(0, 3, (n, 2), generator=gen)
         pwx = torch.nn.functional.one_hot(taps[:, 0], 3).float()
         pwy = torch.nn.functional.one_hot(taps[:, 1], 3).float()
         pch = torch.randint(1, 5, (n, 3), generator=gen).float()
         ppot = torch.randint(-9, 9, (nodes, nodes, 4), generator=gen).float()
         pb, pwx, pwy, pch, ppot = (t.to(dev) for t in (pb, pwx, pwy, pch, ppot))
-        if not torch.equal(ops.fft_spread_cuda(pb, pwx, pwy, pch, nodes),
+        if not torch.equal(ops.fft_spread(pb, pwx, pwy, pch, nodes),
                            fft_repulsion.spread_to_grid(pb, pwx, pwy, pch, nodes)):
             fail(f"fft_spread kernel is not exact on planted nodes at {n_boxes} boxes")
-        if not torch.equal(ops.fft_gather_cuda(ppot, pb, pwx, pwy),
+        if not torch.equal(ops.fft_gather(ppot, pb, pwx, pwy),
                            fft_repulsion.gather_from_grid(ppot, pb, pwx, pwy)):
             fail(f"fft_gather kernel is not exact on planted nodes at {n_boxes} boxes")
-        log(f"fft interp {n_boxes} boxes: planted-node spread and gather exact")
+        log(f"fft interp {n_boxes} boxes: planted-node spread and gather exact "
+            "(boxes overhanging the lattice included)")
 
         if n_boxes == 48:
             row("fft_spread", float((g_k - g_p).abs().max()),
-                cuda_ms(lambda: ops.fft_spread_cuda(base, wx, wy, charges, nodes), inner=20),
+                cuda_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes), inner=20),
                 cuda_ms(lambda: fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes)),
                 # 9 tap weights + 27 products + 27 adds a point; base,
                 # weights and charges read once, the grid written once
                 flops=63.0 * n, nbytes=44.0 * n + 4.0 * nodes * nodes * 3)
             row("fft_gather", float((ph_k - ph_p).abs().max()),
-                cuda_ms(lambda: ops.fft_gather_cuda(pot, base, wx, wy), inner=20),
+                cuda_ms(lambda: ops.fft_gather(pot, base, wx, wy), inner=20),
                 cuda_ms(lambda: fft_repulsion.gather_from_grid(pot, base, wx, wy)),
                 # 9 tap weights + 36 products + 36 adds a point; base and
                 # weights read, phi written, the potential read once
@@ -400,18 +408,42 @@ def device_busy(fn) -> tuple[float, dict]:
     return sum(by_kernel.values()) * 1e-6, by_kernel
 
 
-def add_busy_share(out: dict, fn, total: float) -> None:
-    """out gains device_busy_s and device_idle_share (busy time of one
-    profiled ``fn`` over the unprofiled step time ``total``)."""
-    busy_s, by_kernel = device_busy(fn)
+def add_busy_share(out: dict, step, inner: int) -> None:
+    """out gains step_s (CUDA-event time of ``inner`` back-to-back calls of
+    ``step`` with no sync between them, as the fit runs its steps, over
+    ``inner``; median of 3), device_busy_s (kernel time of one profiled
+    ``step``) and device_idle_share = 1 - busy / step_s."""
+    out["step_s"] = cuda_ms(step, reps=3, inner=inner) * 1e-3
+    busy_s, by_kernel = device_busy(step)
     if busy_s > 0:
+        if busy_s > out["step_s"]:
+            fail(f"device busy {busy_s:.6f} s exceeds the step's {out['step_s']:.6f} s")
         out["device_busy_s"] = busy_s
-        out["device_idle_share"] = 1.0 - min(1.0, busy_s / total)
+        out["device_idle_share"] = 1.0 - busy_s / out["step_s"]
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
         log("step device time by kernel (ms): " + json.dumps(
             {k[:70]: v * 1e-3 for k, v in top}))
     else:
         log("step device time: not measured (the profiler recorded no kernel)")
+
+
+def check_same_step(what: str, res, ref, f_rep) -> None:
+    """The breakdown's stage-by-stage GradResult ``res`` against the
+    backend's own ``ref``: a breakdown that drifted from the step it times
+    fails here.  The two calls differ only in the order of float atomics
+    (the FFT spread).  At a fitted embedding the gradient is a small
+    difference of the attractive and repulsive terms, so its difference is
+    measured against the repulsive term 4 F_rep / Z.  The FFT force
+    y * phi0 - phi1 is itself a cancelling difference, which turns ~1e-7
+    of atomics noise in the lattice into ~5e-5 of the term; a drifted step
+    differs by the order of the term.  So: below 1e-3, and Z to 1e-5."""
+    term = float(torch.linalg.norm(4.0 * f_rep / res.z))
+    rel = float(torch.linalg.norm(res.grad - ref.grad)) / term
+    z_rel = abs(float(res.z) - float(ref.z)) / float(ref.z)
+    log(f"{what} breakdown vs backend.gradient: |d grad| / |4 F_rep / Z| = {rel:.3e}, "
+        f"Z relative {z_rel:.3e}")
+    if not (rel <= 1e-3 and z_rel <= 1e-5):
+        fail(f"{what} breakdown's step differs from the backend's")
 
 
 class Laps:
@@ -438,33 +470,39 @@ def median_laps(runs: list[dict]) -> dict:
 def phase_breakdown(est) -> dict:
     """Seconds of each stage of one Barnes-Hut step at the fitted embedding
     (device synchronised around each stage; median of 3 steps)."""
-    from repro_torch.core import morton, quadtree
+    from repro_torch.api import make_backend
+    from repro_torch.core import attractive, morton, quadtree
     from repro_torch.core.repulsive import bh_repulsion_sorted
     from repro_torch.core.summarize import summarize
-    from repro_torch.core.tsne import TsneState, bh_gradient, combine_forces, gd_update
+    from repro_torch.core.tsne import (
+        TsneConfig, TsneState, combine_forces, gd_update, tsne_step,
+    )
     from repro_torch.kernels import ops
 
     g = est.neighbor_graph_
     y = torch.as_tensor(est.embedding_).cuda()
     state = TsneState(y=y, velocity=torch.zeros_like(y), gains=torch.ones_like(y),
                       iteration=0)
+    backend = make_backend("barnes_hut", TsneConfig(), y.shape[0])   # the fit's
     runs, max_traversal = [], 0
     for _ in range(3):
         lap = Laps()
         cent, r_span = morton.span_radius(y)
-        codes = ops.morton_encode(y, cent, r_span, depth=16)
+        codes = ops.morton_encode(y, cent, r_span, depth=backend.depth)
         lap("morton_encode")
         codes_s, y_s, perm = quadtree.sort_points_by_code(y, codes)
         lap("sort")
-        tree = quadtree.build_quadtree(codes_s, depth=16)
+        tree = quadtree.build_quadtree(codes_s, depth=backend.depth,
+                                       compress=backend.compress_tree)
         lap("build_quadtree")
         summ = summarize(tree, y_s, r_span)
         lap("summarize")
-        rep = bh_repulsion_sorted(y_s, tree, summ, 0.5)
+        rep = bh_repulsion_sorted(y_s, tree, summ, backend.theta)
         lap("traversal")
         f_rep = torch.empty_like(y)
         f_rep[perm] = rep.force
-        f_attr, kl_attr = ops.attractive_ell(y, g.p_cols, g.p_vals)
+        f_attr, kl_attr = attractive.ell_forces(backend.attractive_impl)(
+            y, g.p_cols, g.p_vals)
         lap("attractive")
         res = combine_forces(f_attr, kl_attr, f_rep, rep.z_per_point.sum(), 1.0,
                              g.p_logp, torch.max(rep.steps))
@@ -472,12 +510,13 @@ def phase_breakdown(est) -> dict:
         lap("combine_and_update")
         max_traversal = int(res.max_traversal)
         runs.append(lap.t)
+    check_same_step("bh", res, backend.gradient(y, g, 1.0), f_rep)
     out = median_laps(runs)
     out["max_traversal"] = max_traversal
     out["traversal_share"] = out["traversal"] / out["total"]
-    # the card's busy time over one BH gradient, against the whole step
-    add_busy_share(out, lambda: bh_gradient(y, g.p_cols, g.p_vals, None, 0.5, 1.0, 16,
-                                            g.p_logp), out["total"])
+    # the card's busy time over one whole descent step (gradient + update)
+    add_busy_share(out, lambda: tsne_step(state, g, 1.0, 0.8, backend=backend,
+                                          lr=est.learning_rate_, min_gain=0.01), inner=3)
     log("bh step breakdown at the fitted embedding (s): " + json.dumps(out))
     return out
 
@@ -486,6 +525,7 @@ def phase_fft_breakdown(est) -> dict:
     """Seconds of each stage of one FFT step at the fitted embedding
     (device synchronised around each stage; median of 10 steps)."""
     from repro_torch.api import make_backend
+    from repro_torch.core import attractive
     from repro_torch.core import fft_repulsion as fr
     from repro_torch.core.tsne import (
         TsneConfig, TsneState, combine_forces, gd_update, tsne_step,
@@ -497,32 +537,32 @@ def phase_fft_breakdown(est) -> dict:
     state = TsneState(y=y, velocity=torch.zeros_like(y), gains=torch.ones_like(y),
                       iteration=0)
     backend = make_backend("fft", TsneConfig(), y.shape[0])   # the fit's: 48 boxes
-    n_boxes = backend.n_boxes
-    nodes = 2 * n_boxes + 1
     runs = []
+    # fft_repulsion's stages, each through the function fft_repulsion calls
     for _ in range(10):
         lap = Laps()
-        base, wx, wy, h = fr.interp_coords(y, n_boxes)
-        charges = torch.stack([torch.ones_like(y[:, 0]), y[:, 0], y[:, 1]], dim=1)
+        base, wx, wy, h = fr.interp_coords(y, backend.n_boxes)
+        charges = fr.point_charges(y)
         lap("coords")
-        grid = ops.fft_spread(base, wx, wy, charges, nodes)
+        grid = ops.fft_spread(base, wx, wy, charges, fr.lattice_nodes(backend.n_boxes))
         lap("spread")
         pot = fr.convolve(grid, h)
         lap("convolution")
         phi = ops.fft_gather(pot, base, wx, wy)
         lap("gather")
-        f_attr, kl_attr = ops.attractive_ell(y, g.p_cols, g.p_vals)
+        f_attr, kl_attr = attractive.ell_forces(backend.attractive_impl)(
+            y, g.p_cols, g.p_vals)
         lap("attractive")
         f_rep, z = fr.forces_from_potentials(y, phi)
         res = combine_forces(f_attr, kl_attr, f_rep, z, 1.0, g.p_logp)
         gd_update(state, res.grad, est.learning_rate_, 0.8, 0.01)
         lap("combine_and_update")
         runs.append(lap.t)
+    check_same_step("fft", res, backend.gradient(y, g, 1.0), f_rep)
     out = median_laps(runs)
     # the card's busy time over one whole descent step (gradient + update)
     add_busy_share(out, lambda: tsne_step(state, g, 1.0, 0.8, backend=backend,
-                                          lr=est.learning_rate_, min_gain=0.01),
-                   out["total"])
+                                          lr=est.learning_rate_, min_gain=0.01), inner=20)
     log("fft step breakdown at the fitted embedding (s): " + json.dumps(out))
     return out
 

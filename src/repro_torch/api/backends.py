@@ -105,22 +105,17 @@ class BarnesHutBackend:
 class FFTBackend:
     """FIt-SNE-style repulsion: interpolate to a grid, convolve via FFT.
 
-    ``interp_impl`` and ``attractive_block`` are kept so that the JAX
-    backend's fields carry across; the tensor's device picks the CUDA
-    spread/gather kernels or their plain versions, and the one ELL
-    attractive kernel has no row block.
+    The tensor's device picks the CUDA spread/gather kernels or their plain
+    versions.
     """
 
     name: ClassVar[str] = "fft"
     n_boxes: int = 48
     attractive_impl: str = DEFAULT_ATTRACTIVE_IMPL
-    interp_impl: str = "xla"
-    attractive_block: int = 512
 
     def gradient(self, y, graph: NeighborGraph, exaggeration) -> GradResult:
         f_attr, kl_attr = _attractive(y, graph, self.attractive_impl)
-        f_rep_unnorm, z = fft_repulsion(y, n_boxes=self.n_boxes,
-                                        interp_impl=self.interp_impl)
+        f_rep_unnorm, z = fft_repulsion(y, n_boxes=self.n_boxes)
         return combine_forces(f_attr, kl_attr, f_rep_unnorm, z, exaggeration,
                               graph.p_logp)
 
@@ -178,6 +173,4 @@ def _make_barnes_hut(config: TsneConfig, n: int) -> BarnesHutBackend:
 @register_backend("fft")
 def _make_fft(config: TsneConfig, n: int) -> FFTBackend:
     return FFTBackend(n_boxes=config.fft_n_boxes,
-                      attractive_impl=config.attractive_impl,
-                      interp_impl=config.resolve_fft_interp_impl(),
-                      attractive_block=config.resolve_attractive_block())
+                      attractive_impl=config.attractive_impl)

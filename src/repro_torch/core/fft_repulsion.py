@@ -28,17 +28,17 @@ P_ORDER = 3  # interpolation nodes per box per dim
 # global-memory path.
 MAX_N_BOXES = 128
 
-# kept so a JAX config carries across: the tensor's device, not the name,
-# picks the CUDA kernel or the plain version
-INTERP_IMPLS = ("xla", "pallas")
-
-
 def check_n_boxes(n_boxes: int) -> None:
     if not 1 <= n_boxes <= MAX_N_BOXES:
         raise ValueError(
             f"n_boxes={n_boxes} outside [1, {MAX_N_BOXES}] (MAX_N_BOXES, the "
             "reference's envelope for the interpolation kernels)"
         )
+
+
+def lattice_nodes(n_boxes: int) -> int:
+    """Nodes per dimension of an n_boxes lattice (boxes share edge nodes)."""
+    return n_boxes * (P_ORDER - 1) + 1
 
 
 def _lagrange_weights(frac: torch.Tensor) -> torch.Tensor:
@@ -70,12 +70,20 @@ def interp_coords(y: torch.Tensor, n_boxes: int):
     return base, wx, wy, h
 
 
-def _tap_indices(base: torch.Tensor, nodes: int) -> torch.Tensor:
-    """Flat lattice index of each point's 3x3 taps, [N, 9] int64."""
+def _taps(base: torch.Tensor, nodes: int):
+    """Flat lattice index of each point's 3x3 taps and whether the tap lies
+    on the lattice, both [N, 9].  Taps off the lattice get index 0 and are
+    skipped, as the CUDA kernels skip them (``interp_coords`` never makes
+    one)."""
     taps = torch.arange(P_ORDER, device=base.device)
     gx = base[:, 0, None].long() + taps    # [N,3]
     gy = base[:, 1, None].long() + taps
-    return (gx[:, :, None] * nodes + gy[:, None, :]).reshape(base.shape[0], -1)
+    on_x = (gx >= 0) & (gx < nodes)
+    on_y = (gy >= 0) & (gy < nodes)
+    n = base.shape[0]
+    on = (on_x[:, :, None] & on_y[:, None, :]).reshape(n, -1)
+    flat = (gx[:, :, None] * nodes + gy[:, None, :]).reshape(n, -1)
+    return torch.where(on, flat, 0), on
 
 
 def spread_to_grid(base, wx, wy, charges, nodes: int) -> torch.Tensor:
@@ -85,10 +93,12 @@ def spread_to_grid(base, wx, wy, charges, nodes: int) -> torch.Tensor:
     grid[a, b, c] = sum_i wx[i, a - base_x[i]] * wy[i, b - base_y[i]] * charges[i, c]
     """
     n, c = charges.shape
+    idx, on = _taps(base, nodes)
     w2d = (wx[:, :, None] * wy[:, None, :]).reshape(n, -1)      # [N,9]
     contrib = w2d[:, :, None] * charges[:, None, :]             # [N,9,C]
+    contrib = torch.where(on[:, :, None], contrib, 0.0)
     grid = torch.zeros((nodes * nodes, c), dtype=charges.dtype, device=charges.device)
-    grid.index_add_(0, _tap_indices(base, nodes).reshape(-1), contrib.reshape(-1, c))
+    grid.index_add_(0, idx.reshape(-1), contrib.reshape(-1, c))
     return grid.reshape(nodes, nodes, c)
 
 
@@ -100,8 +110,9 @@ def gather_from_grid(pot, base, wx, wy) -> torch.Tensor:
     """
     nodes, _, c = pot.shape
     n = base.shape[0]
+    idx, on = _taps(base, nodes)
     w2d = (wx[:, :, None] * wy[:, None, :]).reshape(n, -1)      # [N,9]
-    vals = pot.reshape(-1, c)[_tap_indices(base, nodes)]        # [N,9,C]
+    vals = torch.where(on[:, :, None], pot.reshape(-1, c)[idx], 0.0)  # [N,9,C]
     return torch.sum(vals * w2d[:, :, None], dim=1)             # [N,C]
 
 
@@ -130,6 +141,11 @@ def convolve(grid: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return torch.stack([pot2[0], pot2[1], pot2[2], pot1], dim=2)
 
 
+def point_charges(y: torch.Tensor) -> torch.Tensor:
+    """The charges {1, yx, yy} of each point, [N, 3]."""
+    return torch.stack([torch.ones_like(y[:, 0]), y[:, 0], y[:, 1]], dim=1)
+
+
 def forces_from_potentials(y: torch.Tensor, phi: torch.Tensor):
     """(force_unnorm [N,2], z) from the gathered potentials phi [N, 4]."""
     z = torch.sum(phi[:, 3]) - y.shape[0]                  # remove self terms
@@ -138,26 +154,18 @@ def forces_from_potentials(y: torch.Tensor, phi: torch.Tensor):
     return torch.stack([fx, fy], dim=1), torch.clamp_min(z, 1e-30)
 
 
-def fft_repulsion(y: torch.Tensor, n_boxes: int = 48, interp_impl: str = "xla"):
+def fft_repulsion(y: torch.Tensor, n_boxes: int = 48):
     """Returns (force_unnorm [N,2], z) matching exact_repulsion's contract.
 
-    ``interp_impl`` ("xla" or "pallas") is validated and otherwise ignored:
-    spread and gather go through ``ops.fft_spread`` / ``ops.fft_gather``,
+    Spread and gather go through ``ops.fft_spread`` / ``ops.fft_gather``,
     which launch the CUDA kernels for a CUDA ``y`` and run the plain
     versions above for a CPU ``y``.
     """
     from repro_torch.kernels import ops     # lazy: ops imports this module
     check_n_boxes(n_boxes)
-    if interp_impl not in INTERP_IMPLS:
-        raise ValueError(
-            f"unknown interp impl {interp_impl!r} "
-            f"(known: {', '.join(INTERP_IMPLS)})"
-        )
-    nodes = n_boxes * (P_ORDER - 1) + 1
     base, wx, wy, h = interp_coords(y, n_boxes)
     # spread charges {1, yx, yy} onto the nodes^2 lattice, convolve, and
     # gather all four potentials back at the points in one pass
-    charges = torch.stack([torch.ones_like(y[:, 0]), y[:, 0], y[:, 1]], dim=1)
-    grid = ops.fft_spread(base, wx, wy, charges, nodes)        # [nodes, nodes, 3]
+    grid = ops.fft_spread(base, wx, wy, point_charges(y), lattice_nodes(n_boxes))
     phi = ops.fft_gather(convolve(grid, h), base, wx, wy)      # [N, 4]
     return forces_from_potentials(y, phi)

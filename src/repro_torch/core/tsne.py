@@ -13,8 +13,8 @@ On a CUDA device the KNN tile, the perplexity search, the Morton codes,
 the attractive forces and the FFT backend's spread and gather go through
 the hand-written kernels of ``repro_torch.kernels``; on the CPU through
 their plain twins.  The config keeps ``use_pallas`` / ``bsp_impl`` /
-``fft_interp_impl`` / ``attractive_impl`` so that a JAX config carries
-across, but none of them routes around a kernel.
+``attractive_impl`` so that a JAX config carries across, but none of them
+routes around a kernel.
 """
 from __future__ import annotations
 
@@ -39,7 +39,6 @@ DEFAULT_ATTRACTIVE_IMPL = "blocked"
 MAX_N_NEIGHBORS = 1024
 
 BSP_IMPLS = ("auto", "xla", "pallas")
-FFT_INTERP_IMPLS = ("auto", "xla", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +69,6 @@ class TsneConfig:
     # flags, picks kernel or plain version
     use_pallas: bool = False
     bsp_impl: str = "auto"
-    fft_interp_impl: str = "auto"
     # 'ell' | 'components' | 'blocked' all name the one ELL attractive
     # kernel; 'edges' uses the directed edge list
     attractive_impl: str = DEFAULT_ATTRACTIVE_IMPL
@@ -85,9 +83,6 @@ class TsneConfig:
         if self.bsp_impl not in BSP_IMPLS:
             raise ValueError(f"unknown bsp_impl {self.bsp_impl!r} "
                              f"(known: {', '.join(BSP_IMPLS)})")
-        if self.fft_interp_impl not in FFT_INTERP_IMPLS:
-            raise ValueError(f"unknown fft_interp_impl {self.fft_interp_impl!r} "
-                             f"(known: {', '.join(FFT_INTERP_IMPLS)})")
 
     def resolve_lr(self, n: int) -> float:
         if self.learning_rate == "auto":
@@ -111,20 +106,8 @@ class TsneConfig:
             return None
         return max(1, min(int(self.chunk_size), n))
 
-    def resolve_attractive_block(self) -> int:
-        """The reference's attractive row block (never above chunk_size);
-        carried for its FFT backend's field, the ELL kernel has no block."""
-        if self.chunk_size is not None:
-            return max(1, min(512, int(self.chunk_size)))
-        return 512
-
     def resolve_depth(self, n: int) -> int:
         return morton.auto_depth(n) if self.depth == "auto" else int(self.depth)
-
-    def resolve_fft_interp_impl(self) -> str:
-        if self.fft_interp_impl == "auto":
-            return "pallas" if self.use_pallas else "xla"
-        return self.fft_interp_impl
 
 
 class TsneState(NamedTuple):

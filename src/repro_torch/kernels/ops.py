@@ -235,7 +235,8 @@ def fft_spread(base: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
                charges: torch.Tensor, nodes: int) -> torch.Tensor:
     """Spread charges [N, C] onto the lattice: -> grid [nodes, nodes, C] fp32.
 
-    ``base`` must lie in [0, nodes - 3] (``interp_coords`` clips it there).
+    Taps off the lattice are skipped by kernel and plain version alike
+    (``interp_coords`` makes none).
     """
     _check("charges", charges, torch.float32, 2)
     _check_interp(base, wx, wy, charges.shape[0])
@@ -260,8 +261,8 @@ def fft_gather(pot: torch.Tensor, base: torch.Tensor, wx: torch.Tensor,
     """Interpolate pot [nodes, nodes, 4] at the points: -> phi [N, 4] fp32.
 
     The four channels are fft_repulsion's potentials (the CUDA kernel reads
-    a tap as one float4).  ``base`` must lie in [0, nodes - 3]
-    (``interp_coords`` clips it there).
+    a tap as one float4).  Taps off the lattice are skipped by kernel and
+    plain version alike (``interp_coords`` makes none).
     """
     _check("pot", pot, torch.float32, 3)
     _check_interp(base, wx, wy, base.shape[0])

@@ -20,7 +20,7 @@ from repro.kernels.interp_kernel import (  # noqa: E402
     gather_from_grid_pallas, spread_to_grid_pallas,
 )
 from repro_torch import convert  # noqa: E402
-from repro_torch.api import FFTBackend, TsneConfig  # noqa: E402
+from repro_torch.api import FFTBackend  # noqa: E402
 from repro_torch.core import fft_repulsion as fft  # noqa: E402
 from repro_torch.core.exact import exact_repulsion  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -136,6 +136,36 @@ def test_interp_at_max_boxes_matches_jax_oracle():
         rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_ch", [3, 4])
+def test_interp_skips_off_lattice_taps(n_ch):
+    # boxes that hang over either edge of the lattice: the CUDA kernels skip
+    # the taps that fall off it, and so must the plain versions
+    n_boxes, n = 4, 200
+    nodes = fft.lattice_nodes(n_boxes)
+    rng = np.random.default_rng(5)
+    base = (rng.integers(-1, n_boxes + 1, size=(n, 2)) * 2).astype(np.int32)
+    wx = rng.uniform(-0.2, 1, size=(n, 3)).astype(np.float32)
+    wy = rng.uniform(-0.2, 1, size=(n, 3)).astype(np.float32)
+    charges = rng.normal(size=(n, n_ch)).astype(np.float32)
+    pot = rng.normal(size=(nodes, nodes, 4)).astype(np.float32)
+    grid = np.zeros((nodes, nodes, n_ch), np.float64)
+    phi = np.zeros((n, 4), np.float64)
+    for i in range(n):
+        for a in range(3):
+            for b in range(3):
+                gx, gy = base[i, 0] + a, base[i, 1] + b
+                if 0 <= gx < nodes and 0 <= gy < nodes:
+                    w = float(wx[i, a]) * float(wy[i, b])
+                    grid[gx, gy] += w * charges[i]
+                    phi[i] += w * pot[gx, gy]
+    assert (base < 0).any() and (base > nodes - 3).any()
+    out = ops.fft_spread(T(base), T(wx), T(wy), T(charges), nodes).numpy()
+    # fp32 sums of a few products against float64: rtol 1e-5 with a floor
+    np.testing.assert_allclose(out, grid, rtol=1e-5, atol=1e-5)
+    ph = ops.fft_gather(T(pot), T(base), T(wx), T(wy)).numpy()
+    np.testing.assert_allclose(ph, phi, rtol=1e-5, atol=1e-5)
+
+
 # -------------------------------------------------------------- fft_repulsion --
 
 @pytest.mark.parametrize("n,n_boxes,scale,impls", [
@@ -187,13 +217,7 @@ def test_fft_repulsion_errors():
         fft.fft_repulsion(y, n_boxes=fft.MAX_N_BOXES + 1)
     with pytest.raises(ValueError, match="MAX_N_BOXES"):
         fft.fft_repulsion(y, n_boxes=0)
-    with pytest.raises(ValueError, match="unknown interp impl"):
-        fft.fft_repulsion(y, n_boxes=8, interp_impl="cuda")
-    with pytest.raises(ValueError, match="unknown fft_interp_impl"):
-        TsneConfig(fft_interp_impl="cuda")
-    assert TsneConfig(use_pallas=True).resolve_fft_interp_impl() == "pallas"
-    assert TsneConfig(fft_interp_impl="xla", use_pallas=True).resolve_fft_interp_impl() == "xla"
-    assert TsneConfig(chunk_size=100).resolve_attractive_block() == 100
+    assert fft.lattice_nodes(48) == 97 and fft.lattice_nodes(fft.MAX_N_BOXES) == 257
 
 
 # ---------------------------------------------------------------- backend --
