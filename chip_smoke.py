@@ -15,7 +15,14 @@ result line):
                the main path's shapes (MNIST size, 70 000 x 784, K = 90),
                with the tolerance stated beside each check; CUDA-event
                timings (median of several runs) of kernel, plain version
-               and, where one exists, a single PyTorch library call.
+               and, where one exists, a single PyTorch library call,
+               and the kernel's device time from a torch.profiler trace.
+               pairwise is also checked on ragged tiles (the main path's
+               last block and chunk), on rows at no 16-byte boundary and
+               at D = 781, and by the KNN of 4 096 queries from its tiles
+               against the KNN from the plain tiles; attractive with the
+               rows' real lengths (p_len, as the fits call it) and over
+               the full width W, both timed.
                The FFT path's spread and gather are also checked at
                128 boxes (a lattice beyond shared memory) and exactly on
                planted lattice-node points, boxes overhanging the
@@ -28,7 +35,8 @@ result line):
                neighbor_method="exact", perplexity=30, random_state=0) on
                make_dataset("mnist") (70 000 x 784), with every kernel's
                launch count reset before and read after; pairwise, bsp,
-               morton and attractive must be > 0, and the embedding and KL
+               morton and attractive must be > 0, every attractive launch
+               must carry p_len, and the embedding and KL
                must be finite.  300 descent steps (150 exaggerated)
                instead of the default 1 000 keep the script well inside
                its time limit.
@@ -67,8 +75,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-# H100 SXM data-sheet peaks (dense): fp32 outside the tensor cores, HBM3.
+# H100 SXM data-sheet peaks (dense): fp32 outside the tensor cores, TF32
+# on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Main-path KNN blocks: larger than the JAX defaults (512 x 2048), which
@@ -102,8 +112,10 @@ def cuda_ms(fn, reps: int = 5, inner: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the larger of flops at ``peak`` and
+    nbytes at the HBM rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -128,8 +140,100 @@ def phase_build() -> None:
     log(f"build: {len(logs)} kernels compiled in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "entry function" in line:
+                log(f"  {name}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
+                log(f"  {name}:   {line.strip()}")
+    log(f"  pairwise: {build.load('pairwise').pairwise_smem_bytes()} bytes of dynamic "
+        "shared memory a block")
+
+
+def kernel_ms(fn, name: str, reps: int = 10) -> float:
+    """Device milliseconds a call of ``fn`` spends in the CUDA kernels whose
+    name holds ``name``, from a torch.profiler trace of ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    _, by_kernel = device_busy(lambda: [fn() for _ in range(reps)])
+    return sum(us for k, us in by_kernel.items() if name in k) * 1e-3 / reps
+
+
+def pairwise_tol(d2, qn, cn):
+    """The pairwise tolerance of a distance d2 between rows of squared norms
+    qn and cn: the |q|^2+|c|^2-2qc form cancels, so its fp32 error scales
+    with the norms."""
+    return 2e-4 * d2.abs() + 1e-5 * (qn + cn)
+
+
+def check_pairwise(what: str, q, c):
+    """The kernel's tile against the plain version's (cuBLAS fp32) on the
+    card; prints the error distribution and returns the largest error."""
+    from repro_torch.core import _pairwise
+    from repro_torch.kernels import ops
+    qn, cn = torch.sum(q * q, 1), torch.sum(c * c, 1)
+    out = ops.pairwise_sq_dists(q, c, qn, cn)
+    ref = _pairwise.pairwise_sq_dists(q, c, qn, cn)
+    err = (out - ref).abs()
+    share = err / pairwise_tol(ref, qn[:, None], cn[None, :])
+    sample = err.flatten()[::max(1, err.numel() // 1_000_000)].double()
+    quant = torch.quantile(sample, torch.tensor([0.5, 0.99, 0.9999], dtype=torch.float64,
+                                                device=sample.device)).tolist()
+    log(f"pairwise {what}: [{q.shape[0]}, {q.shape[1]}] x [{c.shape[0]}, {c.shape[1]}], "
+        f"byte offsets mod 16 {q.data_ptr() % 16} / {c.data_ptr() % 16}: max_abs_err "
+        f"{float(err.max()):.3e} (|d| quantiles 50/99/99.99%: "
+        f"{', '.join(f'{v:.3e}' for v in quant)}; largest distance {float(ref.max()):.3e}), "
+        f"{float(share.max()):.3f} of the tolerance at most")
+    if not bool((share <= 1.0).all()):
+        fail(f"pairwise_sq_dists kernel disagrees with its plain version ({what})")
+    return float(err.max())
+
+
+def knn_rows(x, nq: int, k: int, dist):
+    """K nearest neighbours of the first ``nq`` rows of ``x`` among all its
+    rows (self excluded) from the tiles ``dist`` gives, merged as
+    core/knn.py merges them: (idx [nq, k], d2 [nq, k] ascending)."""
+    n = x.shape[0]
+    sqn = torch.sum(x * x, 1)
+    big = torch.finfo(x.dtype).max
+    rows = torch.arange(nq, device=x.device)
+    best_d = torch.full((nq, k), big, dtype=x.dtype, device=x.device)
+    best_i = torch.full((nq, k), -1, dtype=torch.int64, device=x.device)
+    for c0 in range(0, n, KNN_BLOCK_DB):
+        c1 = min(c0 + KNN_BLOCK_DB, n)
+        col = torch.arange(c0, c1, device=x.device)
+        d2 = dist(x[:nq], x[c0:c1], sqn[:nq], sqn[c0:c1])
+        d2 = d2.masked_fill(col[None, :] == rows[:, None], big)
+        best_d, arg = torch.topk(torch.cat([best_d, d2], 1), k, dim=1, largest=False)
+        best_i = torch.gather(torch.cat([best_i, col.expand(nq, -1)], 1), 1, arg)
+    return best_i, best_d
+
+
+def check_knn(x, k: int) -> None:
+    """The KNN of the first KNN_BLOCK_Q rows from the kernel's tiles against
+    the one from the plain tiles: every neighbour that one finds and the
+    other does not must lie within the pairwise tolerance of the plain k-th
+    distance (its own distance taken in float64)."""
+    from repro_torch.core import _pairwise
+    from repro_torch.kernels import ops
+    nq = KNN_BLOCK_Q
+    ik, _ = knn_rows(x, nq, k, ops.pairwise_sq_dists)
+    ip, dp = knn_rows(x, nq, k, _pairwise.pairwise_sq_dists)
+    sqn = torch.sum(x.double() ** 2, 1)
+    worst = 0.0
+    for mine, other in ((ik, ip), (ip, ik)):
+        missed = ~(mine[:, :, None] == other[:, None, :]).any(-1)
+        r, m = torch.nonzero(missed, as_tuple=True)
+        j = mine[r, m]
+        d_true = torch.sum((x[r].double() - x[j].double()) ** 2, 1)
+        kth = dp[r, -1].double()
+        if r.numel():
+            tol = pairwise_tol(kth, sqn[r], sqn[j])
+            worst = max(worst, float(((d_true - kth).abs() / tol).max()))
+    shared = float((ik[:, :, None] == ip[:, None, :]).any(-1).float().mean())
+    log(f"pairwise KNN check, {nq} queries x {k} neighbours: {shared:.6f} of the "
+        f"neighbours shared; the others lie {worst:.3f} of the tolerance from the "
+        f"plain k-th distance at most")
+    if worst > 1.0:
+        fail("the KNN from the kernel's tiles disagrees with the plain KNN")
 
 
 def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
@@ -144,33 +248,46 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows = []
 
-    def row(name, err, ms, plain_ms, flops, nbytes, library_ms=None):
-        b_ms, b_by = bound(flops, nbytes)
+    def row(name, err, ms, plain_ms, flops, nbytes, library_ms=None,
+            peak=PEAK_FP32_FLOPS, **extra):
+        b_ms, b_by = bound(flops, nbytes, peak)
         e = reg[name]
         rows.append(dict(name=name, route="cuda", source=e["source"],
                          replaces=e["replaces"], tpu_kernel=e["tpu"], launches=0,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms))
+                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, **extra))
         log(f"kernel {name}: max_abs_err {err:.3e}  {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  library {library_ms}")
+            f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it)  "
+            f"library {library_ms}" + "".join(f"  {k} {v}" for k, v in extra.items()))
 
     # pairwise_sq_dists: one [KNN_BLOCK_Q, KNN_BLOCK_DB] x 784 tile of the KNN
     q = x[:KNN_BLOCK_Q].contiguous()
     c = x[KNN_BLOCK_Q:KNN_BLOCK_Q + KNN_BLOCK_DB].contiguous()
     qn, cn = torch.sum(q * q, 1), torch.sum(c * c, 1)
-    out = ops.pairwise_sq_dists(q, c, qn, cn)
-    ref = _pairwise.pairwise_sq_dists(q, c, qn, cn)
-    # the |q|^2+|c|^2-2qc form cancels: its fp32 error scales with the norms
-    tol = 2e-4 * ref.abs() + 1e-5 * (qn[:, None] + cn[None, :])
-    if not bool(((out - ref).abs() <= tol).all()):
-        fail("pairwise_sq_dists kernel disagrees with its plain version")
+    err = check_pairwise("main tile", q, c)
+    # ragged tiles: the main path's last query block and database chunk
+    # (16-byte copies), and rows at no 16-byte boundary (4-byte copies): a
+    # flat view one element in (x[1:1001] itself stays aligned at D = 784,
+    # 3 136 bytes a row) and D = 781, not a multiple of 4
+    check_pairwise("ragged last block", x[-(n % KNN_BLOCK_Q):], x[-(n % KNN_BLOCK_DB):])
+    flat = x.reshape(-1)
+    check_pairwise("misaligned flat view", flat[1:1 + 1000 * d].view(1000, d),
+                   flat[5003 * d + 3:5003 * d + 3 + 3001 * d].view(3001, d))
+    x781 = x[:, :781].contiguous()
+    check_pairwise("D = 781", x781[1:1001], x781[5003:8004])
+    check_knn(x, k)
     nq, nc = q.shape[0], c.shape[0]
-    row("pairwise_sq_dists", float((out - ref).abs().max()),
-        cuda_ms(lambda: ops.pairwise_sq_dists(q, c, qn, cn)),
-        cuda_ms(lambda: _pairwise.pairwise_sq_dists(q, c, qn, cn)),
-        flops=2.0 * nq * nc * d + 3.0 * nq * nc,
-        nbytes=4.0 * ((nq + nc) * d + nq + nc + nq * nc),
-        library_ms=cuda_ms(lambda: torch.cdist(q, c).square()))
+    log(f"pairwise yardstick: q @ c.T (cuBLAS fp32 product alone) "
+        f"{cuda_ms(lambda: q @ c.T):.4f} ms")
+    fp32_ms, _ = bound(2.0 * nq * nc * d + 3.0 * nq * nc,
+                       4.0 * ((nq + nc) * d + nq + nc + nq * nc))
+    ms = cuda_ms(lambda: ops.pairwise_sq_dists(q, c, qn, cn))
+    # 3xTF32: three TF32 products on the tensor cores
+    row("pairwise_sq_dists", err, ms, cuda_ms(lambda: _pairwise.pairwise_sq_dists(q, c, qn, cn)),
+        flops=3 * 2.0 * nq * nc * d, nbytes=4.0 * ((nq + nc) * d + nq + nc + nq * nc),
+        library_ms=cuda_ms(lambda: torch.cdist(q, c).square()), peak=PEAK_TF32_FLOPS,
+        device_ms=kernel_ms(lambda: ops.pairwise_sq_dists(q, c, qn, cn), "pairwise"),
+        bound_fp32_simt_ms=fp32_ms, fp32_simt_share=fp32_ms / ms)
 
     # bsp_search on the real [N, K] distances of the main path
     idx, d2 = knn.knn(x, k, KNN_BLOCK_Q, KNN_BLOCK_DB)
@@ -201,24 +318,41 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
         cuda_ms(lambda: morton.morton_encode(y, cent, r_span), inner=20),
         flops=6.0 * n, nbytes=8.0 * n + 8.0 * n + 12.0)
 
-    # attractive_ell on the real symmetric graph of the main path
+    # attractive_ell on the real symmetric graph of the main path, with the
+    # rows' real lengths (as the fits call it) and over the full width
     sym_cols, sym_vals = similarity.symmetrize_ell(idx.cpu().numpy(), p_k.cpu().numpy())
     cols = torch.as_tensor(sym_cols, device=dev)
     vals = torch.as_tensor(sym_vals / sym_vals.sum(), device=dev).to(torch.float32)
-    f_k, kl_k = ops.attractive_ell(y, cols, vals)
-    f_p, kl_p = attractive.attractive_forces_ell(y, cols, vals)
-    # summation order differs (warp tree vs torch reduction): rtol 1e-4 with
-    # an absolute floor at 1e-5 of the largest force, KL to 1e-5 relative
-    f_scale = float(f_p.abs().max())
-    if not (torch.allclose(f_k, f_p, rtol=1e-4, atol=1e-5 * f_scale)
-            and abs(float(kl_k) - float(kl_p)) <= 1e-5 * abs(float(kl_p))):
-        fail("attractive_ell kernel disagrees with its plain version")
-    nw = cols.numel()
-    row("attractive_ell", float((f_k - f_p).abs().max()),
-        cuda_ms(lambda: ops.attractive_ell(y, cols, vals), inner=10),
-        cuda_ms(lambda: attractive.attractive_forces_ell(y, cols, vals)),
-        flops=13.0 * nw, nbytes=8.0 * nw + 8.0 * n + 8.0 * n + 4.0)
-    log(f"graph: N={n} K={k} W={cols.shape[1]}")
+    p_len = torch.as_tensor(similarity.ell_row_lengths(sym_cols), device=dev)
+    nnz, w = int(p_len.sum()), cols.shape[1]
+    log(f"graph: N={n} K={k} W={w} nnz={nnz} ({nnz / (n * w):.1%} of N x W), row length "
+        f"mean {nnz / n:.2f} max {int(p_len.max())}")
+    errs = {}
+    for what, lens in (("p_len", p_len), ("full W", None)):
+        f_k, kl_k = ops.attractive_ell(y, cols, vals, lens)
+        f_p, kl_p = attractive.attractive_forces_ell(y, cols, vals, lens)
+        # summation order differs (warp tree vs torch reduction): rtol 1e-4
+        # with an absolute floor at 1e-5 of the largest force, KL to 1e-5
+        f_scale = float(f_p.abs().max())
+        if not (torch.allclose(f_k, f_p, rtol=1e-4, atol=1e-5 * f_scale)
+                and abs(float(kl_k) - float(kl_p)) <= 1e-5 * abs(float(kl_p))):
+            fail(f"attractive_ell kernel ({what}) disagrees with its plain version")
+        errs[what] = float((f_k - f_p).abs().max())
+    full_ms = cuda_ms(lambda: ops.attractive_ell(y, cols, vals), inner=10)
+    full_dev = kernel_ms(lambda: ops.attractive_ell(y, cols, vals), "attractive")
+    # real entries only: cols and vals of nnz entries, y and row_len read,
+    # force and the KL partials written; ~13 operations an entry
+    a_flops, a_bytes = 13.0 * nnz, 8.0 * nnz + 8.0 * n + 4.0 * n + 8.0 * n + 4.0 * n
+    a_bound, _ = bound(a_flops, a_bytes)
+    log(f"attractive_ell full W (row_len=None): max_abs_err {errs['full W']:.3e}  "
+        f"{full_ms:.4f} ms ({full_dev:.4f} ms on the device)  {a_bound / full_ms:.1%} "
+        f"of the bound counted on nnz")
+    row("attractive_ell", errs["p_len"],
+        cuda_ms(lambda: ops.attractive_ell(y, cols, vals, p_len), inner=10),
+        cuda_ms(lambda: attractive.attractive_forces_ell(y, cols, vals, p_len)),
+        flops=a_flops, nbytes=a_bytes,
+        device_ms=kernel_ms(lambda: ops.attractive_ell(y, cols, vals, p_len), "attractive"),
+        nnz=nnz, full_w_ms=full_ms, full_w_device_ms=full_dev)
 
     # fft_spread / fft_gather on the same N points: 48 boxes (97 x 97 nodes,
     # the shared-memory spread) for the rows, 128 boxes (257 x 257, the
@@ -300,7 +434,7 @@ def phase_gradient(x: torch.Tensor) -> None:
     def grad_on(dev):
         res = bh_gradient(torch.as_tensor(y, device=dev), graph.p_cols.to(dev),
                           graph.p_vals.to(dev), None, 0.5, 12.0, 16,
-                          graph.p_logp.to(dev))
+                          graph.p_logp.to(dev), p_len=graph.p_len.to(dev))
         return res.grad.cpu(), float(res.kl)
 
     g_gpu, kl_gpu = grad_on(x.device)
@@ -357,12 +491,28 @@ def phase_fit(x_np: np.ndarray, method: str, n_iter: int, exag_iters: int,
                backend_options=dict(knn_block_q=KNN_BLOCK_Q, knn_block_db=KNN_BLOCK_DB,
                                     exaggeration_iters=exag_iters,
                                     momentum_switch_iter=exag_iters))
+    # every attractive launch of the fit must carry the rows' real lengths
+    with_len = []
+    launch_attractive = ops.attractive_ell_cuda
+
+    def attractive_spy(y, cols, vals, row_len=None):
+        with_len.append(row_len is not None)
+        return launch_attractive(y, cols, vals, row_len)
+
+    ops.attractive_ell_cuda = attractive_spy
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    est.fit(x_np)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        est.fit(x_np)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.attractive_ell_cuda = launch_attractive
     launches = dict(ops.LAUNCHES)
+    log(f"{method} fit: {sum(with_len)} of {len(with_len)} attractive_ell launches "
+        "with the rows' real lengths (p_len)")
+    if not all(with_len):
+        fail(f"the {method} fit launched attractive_ell without p_len")
     t = est.timings_
     log(f"{method} fit phases (s): " + json.dumps(
         {k: t[k] for k in ("knn", "bsp", "symmetrize", "gradient_descent")}))
@@ -502,7 +652,7 @@ def phase_breakdown(est) -> dict:
         f_rep = torch.empty_like(y)
         f_rep[perm] = rep.force
         f_attr, kl_attr = attractive.ell_forces(backend.attractive_impl)(
-            y, g.p_cols, g.p_vals)
+            y, g.p_cols, g.p_vals, g.p_len)
         lap("attractive")
         res = combine_forces(f_attr, kl_attr, f_rep, rep.z_per_point.sum(), 1.0,
                              g.p_logp, torch.max(rep.steps))
@@ -551,7 +701,7 @@ def phase_fft_breakdown(est) -> dict:
         phi = ops.fft_gather(pot, base, wx, wy)
         lap("gather")
         f_attr, kl_attr = attractive.ell_forces(backend.attractive_impl)(
-            y, g.p_cols, g.p_vals)
+            y, g.p_cols, g.p_vals, g.p_len)
         lap("attractive")
         f_rep, z = fr.forces_from_potentials(y, phi)
         res = combine_forces(f_attr, kl_attr, f_rep, z, 1.0, g.p_logp)

@@ -60,7 +60,8 @@ def _attractive(y, graph: NeighborGraph, attractive_impl: str):
     _check_attractive_layout(graph, y.shape[0], attractive_impl)
     if attractive_impl == "edges":
         return attractive.attractive_forces_edges(y, *graph.edges)
-    return attractive.ell_forces(attractive_impl)(y, graph.p_cols, graph.p_vals)
+    return attractive.ell_forces(attractive_impl)(y, graph.p_cols, graph.p_vals,
+                                                  graph.p_len)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +98,7 @@ class BarnesHutBackend:
         return bh_gradient(
             y, graph.p_cols, graph.p_vals, edges, self.theta, exaggeration,
             self.depth, graph.p_logp, compress_tree=self.compress_tree,
-            attractive_impl=self.attractive_impl,
+            attractive_impl=self.attractive_impl, p_len=graph.p_len,
         )
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.similarity import ell_row_lengths
 from repro_torch.core.tsne import NeighborGraph, TsneState
 from repro_torch.device import resolve_device
 
@@ -18,8 +19,10 @@ def graph_from_numpy(p_cols, p_vals, p_logp, n: int | None = None, *,
                      edges=None, device=None,
                      dtype: torch.dtype = torch.float32) -> NeighborGraph:
     """A :class:`NeighborGraph` from ELL planes (and optionally the directed
-    edge list ``(src, dst, w)``) held as numpy arrays."""
+    edge list ``(src, dst, w)``) held as numpy arrays.  ``p_len`` is derived
+    from ``p_cols`` as :func:`preprocess` derives it."""
     dev = resolve_device(device)
+    p_len = torch.tensor(ell_row_lengths(np.asarray(p_cols)), device=dev)
     p_cols = torch.tensor(np.asarray(p_cols, np.int32), device=dev)
     p_vals = torch.tensor(np.asarray(p_vals), device=dev).to(dtype)
     n = int(p_cols.shape[0]) if n is None else int(n)
@@ -32,7 +35,7 @@ def graph_from_numpy(p_cols, p_vals, p_logp, n: int | None = None, *,
         edge_src = edge_dst = torch.zeros((1,), dtype=torch.int32, device=dev)
         edge_w = torch.zeros((1,), dtype=dtype, device=dev)
     return NeighborGraph(
-        p_cols=p_cols, p_vals=p_vals, edge_src=edge_src, edge_dst=edge_dst,
+        p_cols=p_cols, p_vals=p_vals, p_len=p_len, edge_src=edge_src, edge_dst=edge_dst,
         edge_w=edge_w, p_logp=torch.tensor(float(p_logp), dtype=dtype, device=dev),
         n=n, has_edges=edges is not None)
 

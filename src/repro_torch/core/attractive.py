@@ -17,15 +17,24 @@ import torch
 ELL_IMPLS = ("ell", "components", "blocked")
 
 
-def attractive_forces_ell(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor):
+def attractive_forces_ell(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                          row_len: torch.Tensor | None = None):
     """Algorithm 2 over the symmetric ELL matrix.
 
-    y    : [N, 2]      embedding points
-    cols : [N, W] int  neighbor indices (padding: col = row index)
-    vals : [N, W]      symmetric p_ij (already / 2N; padding: 0)
+    y       : [N, 2]      embedding points
+    cols    : [N, W] int  neighbor indices (padding: col = row index)
+    vals    : [N, W]      symmetric p_ij (already / 2N; padding: 0)
+    row_len : [N] int     real entries of each row, or None (all W); the
+                          entries at or past it are masked to padding
 
     Returns (force [N, 2], kl_attr scalar).
     """
+    if row_len is not None:
+        n, w = cols.shape
+        real = torch.arange(w, device=cols.device)[None, :] < row_len[:, None]
+        rows = torch.arange(n, dtype=cols.dtype, device=cols.device)[:, None]
+        cols = torch.where(real, cols, rows)
+        vals = torch.where(real, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
     yj = y[cols.long()]                            # [N, W, 2]
     diff = y[:, None, :] - yj
     d2 = torch.sum(diff * diff, dim=-1)

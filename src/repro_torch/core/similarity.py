@@ -70,6 +70,23 @@ def symmetrize_ell(cols, cond_p):
     return sym_cols, sym_vals
 
 
+def ell_row_lengths(cols) -> np.ndarray:
+    """Real entries of each ELL row: [N] int32, one past the row's last
+    entry whose column is not the row itself.
+
+    :func:`symmetrize_ell` puts a row's real entries first and pads it
+    with col = row (val = 0); the KNN excludes self, so no real entry has
+    col = row and this is the count of real entries.  On any ELL graph an
+    entry with col = row adds nothing to the attractive force or KL
+    (y_i - y_j = 0), so dropping the trailing ones is exact.
+    """
+    cols = np.asarray(cols)
+    n, w = cols.shape
+    real = cols != np.arange(n)[:, None]
+    last = w - np.argmax(real[:, ::-1], axis=1)
+    return np.where(real.any(axis=1), last, 0).astype(np.int32)
+
+
 def symmetrize_ell_chunked(cols, cond_p, chunk_size: int):
     """:func:`symmetrize_ell` in row chunks: bit-identical output, but the
     2NK-edge sort never materialises; transients are O(chunk * K) beyond

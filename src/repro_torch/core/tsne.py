@@ -130,6 +130,7 @@ class NeighborGraph:
     """Sparse symmetric input-similarity graph produced by :func:`preprocess`."""
     p_cols: torch.Tensor     # [N, W] int32 ELL neighbor indices (pad: row idx)
     p_vals: torch.Tensor     # [N, W] symmetric p_ij, sums to 1 (pad: 0)
+    p_len: torch.Tensor      # [N] int32 real entries of each row (the rest pads)
     edge_src: torch.Tensor   # [NK] directed KNN edges ([1] dummy when unused)
     edge_dst: torch.Tensor
     edge_w: torch.Tensor     # p_{dst|src} / 2N
@@ -162,7 +163,8 @@ def combine_forces(f_attr, kl_attr, f_rep_unnorm, z, exaggeration, p_logp,
 
 def bh_gradient(y, p_cols, p_vals, edges, theta: float, exaggeration: float,
                 depth: int, p_logp, compress_tree: bool = True,
-                attractive_impl: str = DEFAULT_ATTRACTIVE_IMPL) -> GradResult:
+                attractive_impl: str = DEFAULT_ATTRACTIVE_IMPL,
+                p_len=None) -> GradResult:
     # --- quadtree building (step 3) ---
     cent, r_span = morton.span_radius(y)
     codes = ops.morton_encode(y, cent, r_span, depth=depth)
@@ -179,7 +181,7 @@ def bh_gradient(y, p_cols, p_vals, edges, theta: float, exaggeration: float,
     if edges is not None:
         f_attr, kl_attr = attractive.attractive_forces_edges(y, *edges)
     else:
-        f_attr, kl_attr = attractive.ell_forces(attractive_impl)(y, p_cols, p_vals)
+        f_attr, kl_attr = attractive.ell_forces(attractive_impl)(y, p_cols, p_vals, p_len)
     return combine_forces(f_attr, kl_attr, f_rep, z, exaggeration, p_logp,
                           max_traversal=torch.max(rep.steps))
 
@@ -298,6 +300,7 @@ def preprocess(x: torch.Tensor, config: TsneConfig) -> tuple[NeighborGraph, dict
             has_edges = True
             p_cols = torch.zeros((1, 1), dtype=torch.int32, device=dev)
             p_vals = torch.zeros((1, 1), dtype=config.dtype, device=dev)
+            p_len = torch.zeros((1,), dtype=torch.int32, device=dev)
         else:
             idx_h, cond_h = idx.cpu().numpy(), cond_p.cpu().numpy()
             if chunk is not None:
@@ -305,6 +308,10 @@ def preprocess(x: torch.Tensor, config: TsneConfig) -> tuple[NeighborGraph, dict
             else:
                 sym_cols, sym_vals = similarity.symmetrize_ell(idx_h, cond_h)
             sym_vals = sym_vals / sym_vals.sum()
+            lengths = similarity.ell_row_lengths(sym_cols)
+            if (lengths != (sym_cols != np.arange(n)[:, None]).sum(axis=1)).any():
+                raise RuntimeError("symmetrized ELL rows must hold their padding "
+                                   "(col = row) after all real entries")
             pv = sym_vals[sym_vals > 0]
             p_logp = float((pv * np.log(pv)).sum())
             src = dst = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -312,8 +319,9 @@ def preprocess(x: torch.Tensor, config: TsneConfig) -> tuple[NeighborGraph, dict
             has_edges = False
             p_cols = torch.as_tensor(sym_cols, device=dev)
             p_vals = torch.as_tensor(sym_vals, device=dev).to(config.dtype)
+            p_len = torch.as_tensor(lengths, device=dev)
         graph = NeighborGraph(
-            p_cols=p_cols, p_vals=p_vals, edge_src=src, edge_dst=dst, edge_w=w,
+            p_cols=p_cols, p_vals=p_vals, p_len=p_len, edge_src=src, edge_dst=dst, edge_w=w,
             p_logp=torch.tensor(p_logp, dtype=config.dtype, device=dev),
             n=n, has_edges=has_edges)
     timings.update(neighbor_method=nb.name, n_neighbors=k,

@@ -34,7 +34,7 @@ _SIGNATURES = {
     "pairwise": ("pairwise_sq_dists", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "bsp": ("bsp_search", [_P, _P, _P, _I, _I, _F, _F, _I, _P]),
     "morton": ("morton_encode", [_P, _P, _P, _I, _I, _P]),
-    "attractive": ("attractive_ell", [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "attractive": ("attractive_ell", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "spread": ("fft_spread", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "gather": ("fft_gather", [_P, _P, _P, _P, _P, _I, _I, _P]),
 }
@@ -182,8 +182,17 @@ def morton_encode_cuda(y, cent, r_span, depth: int = morton.DEFAULT_DEPTH):
 # attractive_ell
 # ---------------------------------------------------------------------------
 
-def attractive_ell(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor):
-    """Algorithm 2: y [N, 2], cols [N, W] int32, vals [N, W] -> (F [N, 2], KL)."""
+def attractive_ell(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                   row_len: torch.Tensor | None = None):
+    """Algorithm 2: y [N, 2], cols [N, W] int32, vals [N, W] -> (F [N, 2], KL).
+
+    ``row_len`` [N] int32 in [0, W] is the number of real entries of each
+    row (``NeighborGraph.p_len``); entries at or past it are ignored by
+    kernel and plain version alike.  ``None``: every row is W long.  Its
+    range is checked on the CPU only: on the card the check would read the
+    lengths back, a host sync every descent step.  There the kernel clamps
+    each length into [0, W], as the plain version's mask does.
+    """
     _check("y", y, torch.float32, 2)
     _check("cols", cols, torch.int32, 2)
     _check("vals", vals, torch.float32, 2)
@@ -192,18 +201,32 @@ def attractive_ell(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor):
         raise ValueError(f"expected y [N, 2], cols and vals [N, W]; got y "
                          f"{tuple(y.shape)}, cols {tuple(cols.shape)}, vals "
                          f"{tuple(vals.shape)}")
-    if _device(y=y, cols=cols, vals=vals).type == "cpu":
-        return attractive.attractive_forces_ell(y, cols, vals)
-    return attractive_ell_cuda(y, cols, vals)
+    tensors = dict(y=y, cols=cols, vals=vals)
+    if row_len is not None:
+        _check("row_len", row_len, torch.int32, 1)
+        if row_len.shape[0] != n:
+            raise ValueError(f"row_len: expected shape ({n},), got {tuple(row_len.shape)}")
+        tensors["row_len"] = row_len
+    dev = _device(**tensors)
+    if dev.type == "cpu" and row_len is not None and n:
+        lo, hi = (int(v) for v in torch.aminmax(row_len))
+        if lo < 0 or hi > w:
+            raise ValueError(f"row_len: values must lie in [0, {w}], got [{lo}, {hi}]")
+    if dev.type == "cpu":
+        return attractive.attractive_forces_ell(y, cols, vals, row_len)
+    return attractive_ell_cuda(y, cols, vals, row_len)
 
 
-def attractive_ell_cuda(y, cols, vals):
+def attractive_ell_cuda(y, cols, vals, row_len=None):
     n, w = cols.shape
+    if y.data_ptr() % 8:
+        raise ValueError("y must be 8-byte aligned (the kernel reads a point as a float2)")
     force = torch.empty((n, 2), dtype=torch.float32, device=y.device)
     kl_rows = torch.empty((n,), dtype=torch.float32, device=y.device)
     if n:
         _launch("attractive_ell", "attractive", y.device, y.data_ptr(), cols.data_ptr(),
-                vals.data_ptr(), force.data_ptr(), kl_rows.data_ptr(), n, w)
+                vals.data_ptr(), None if row_len is None else row_len.data_ptr(),
+                force.data_ptr(), kl_rows.data_ptr(), n, w)
     # per-row partials summed here, as attractive_kernel.py sums them:
     # deterministic, no atomics
     return force, torch.sum(kl_rows)
@@ -305,7 +328,7 @@ def kernel_registry() -> dict:
             source="src/repro_torch/csrc/pairwise.cu",
             tpu="src/repro/kernels/pairwise_kernel.py:_pairwise_kernel",
             replaces="src/repro/kernels/pairwise_kernel.py:22",
-            doc="KNN distance tile (tiled fp32 SIMT product + norm epilogue)"),
+            doc="KNN distance tile (3xTF32 mma.sync tensor-core product + norm epilogue)"),
         "bsp_search": dict(
             plain=bsp.binary_search_perplexity_plain, cuda=bsp_search_cuda,
             wrapper=bsp_search,
@@ -326,7 +349,7 @@ def kernel_registry() -> dict:
             source="src/repro_torch/csrc/attractive.cu",
             tpu="src/repro/kernels/attractive_kernel.py:_attractive_kernel",
             replaces="src/repro/kernels/attractive_kernel.py:26",
-            doc="Algorithm 2: attractive forces over ELL rows, gather in-kernel"),
+            doc="Algorithm 2: attractive forces over the real ELL entries, gather in-kernel"),
         "fft_spread": dict(
             plain=fft_repulsion.spread_to_grid, cuda=fft_spread_cuda,
             wrapper=fft_spread,

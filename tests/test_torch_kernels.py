@@ -20,7 +20,8 @@ from repro.kernels.attractive_kernel import attractive_forces_ell_pallas  # noqa
 from repro.kernels.bsp_kernel import binary_search_perplexity_pallas  # noqa: E402
 from repro.kernels.morton_kernel import morton_encode_pallas  # noqa: E402
 from repro.kernels.pairwise_kernel import pairwise_sq_dists_pallas  # noqa: E402
-from repro_torch.core import bsp, morton  # noqa: E402
+from repro.core import similarity as jsim  # noqa: E402
+from repro_torch.core import attractive, bsp, morton, similarity  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 T = torch.as_tensor
@@ -45,7 +46,7 @@ def test_morton_matches_pallas_bitwise(n, depth):
 
 
 @pytest.mark.parametrize("nq,nc,d", [(64, 64, 8), (128, 256, 20), (300, 500, 64),
-                                     (1000, 777, 784)])
+                                     (1000, 777, 784), (300, 500, 781)])
 def test_pairwise_matches_pallas(nq, nc, d):
     rng = np.random.default_rng(nq + nc)
     q = rng.normal(size=(nq, d)).astype(np.float32)
@@ -55,6 +56,21 @@ def test_pairwise_matches_pallas(nq, nc, d):
     # the tolerance of tests/test_kernels.py: fp32 |q|^2+|c|^2-2qc cancels
     np.testing.assert_allclose(out, ref, rtol=2e-4, atol=1e-4)
     assert (out >= 0).all()
+
+
+def test_pairwise_misaligned_row_view_matches_pallas():
+    # rows of a flat buffer read from an odd element offset: no row starts
+    # 16-byte aligned (the CUDA kernel stages such rows 4 bytes at a time)
+    rng = np.random.default_rng(11)
+    d = 784
+    buf = T(rng.normal(size=(1 + 700 * d,)).astype(np.float32))
+    q = buf[1:1 + 300 * d].view(300, d)
+    c = buf[1 + 300 * d:1 + 700 * d].view(400, d)
+    assert q.is_contiguous() and q.data_ptr() % 16 and c.data_ptr() % 16
+    ref = np.asarray(pairwise_sq_dists_pallas(jnp.asarray(q.numpy()), jnp.asarray(c.numpy())))
+    out = ops.pairwise_sq_dists(q, c).numpy()
+    # the tolerance of tests/test_kernels.py: fp32 |q|^2+|c|^2-2qc cancels
+    np.testing.assert_allclose(out, ref, rtol=2e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("n,w", [(10, 3), (256, 90), (1000, 33)])
@@ -69,6 +85,88 @@ def test_attractive_matches_pallas(n, w):
     # fp32 sums in another order: rtol 1e-5, as tests/test_kernels.py
     np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(float(kl), float(kl_ref), rtol=1e-5)
+
+
+def symmetrized_graph(n, k, seed):
+    """A padded ELL graph as preprocessing makes it: the exact KNN of
+    clustered points, the perplexity search, symmetrize_ell."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(6, 5))[rng.integers(0, 6, n)]
+         + 0.3 * rng.normal(size=(n, 5))).astype(np.float32)
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    idx = np.argsort(d2, axis=1, kind="stable")[:, :k].astype(np.int32)
+    cond_p, _ = bsp.binary_search_perplexity_plain(
+        T(np.take_along_axis(d2, idx, 1).astype(np.float32)), k / 3.0)
+    cols, vals = jsim.symmetrize_ell(idx, cond_p.numpy())
+    return idx, cols, (vals / vals.sum()).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,k", [(200, 12), (700, 30)])
+def test_attractive_row_len_matches_pallas_on_symmetrized_graph(n, k):
+    _, cols, vals = symmetrized_graph(n, k, seed=n)
+    row_len = similarity.ell_row_lengths(cols)
+    assert row_len.min() >= k and row_len.max() == cols.shape[1] > row_len.mean()
+    y = (np.random.default_rng(k).normal(size=(n, 2)) * 5).astype(np.float32)
+    # the Pallas kernel reads every W entry, padding included
+    f_ref, kl_ref = attractive_forces_ell_pallas(jnp.asarray(y), jnp.asarray(cols),
+                                                 jnp.asarray(vals))
+    f, kl = ops.attractive_ell(T(y), T(cols), T(vals), T(row_len))
+    # padding adds exact zeros; fp32 sums in another order: rtol 1e-5
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(float(kl), float(kl_ref), rtol=1e-5)
+
+
+def test_attractive_ignores_entries_past_row_len():
+    rng = np.random.default_rng(3)
+    n, w = 120, 16
+    y = T(rng.normal(size=(n, 2)).astype(np.float32))
+    cols = rng.integers(0, n, size=(n, w)).astype(np.int32)
+    vals = rng.uniform(0, 1e-3, size=(n, w)).astype(np.float32)
+    row_len = rng.integers(0, w + 1, size=n).astype(np.int32)
+    past = np.arange(w)[None, :] >= row_len[:, None]
+    f, kl = ops.attractive_ell(y, T(cols), T(vals), T(row_len))
+    # entries past the end: non-zero values, columns even outside [0, N)
+    junk_cols = np.where(past, rng.integers(-n, 2 * n, size=(n, w)), cols).astype(np.int32)
+    junk_vals = np.where(past, rng.uniform(1, 2, size=(n, w)), vals).astype(np.float32)
+    fj, klj = ops.attractive_ell(y, T(junk_cols), T(junk_vals), T(row_len))
+    assert torch.equal(f, fj) and torch.equal(kl, klj)
+    # the same rows cut to their lengths, in float64
+    yy = y.numpy().astype(np.float64)
+    f64, kl64 = np.zeros((n, 2)), 0.0
+    for i in range(n):
+        c, v = cols[i, :row_len[i]], vals[i, :row_len[i]].astype(np.float64)
+        diff = yy[i] - yy[c]
+        d2 = (diff ** 2).sum(1)
+        f64[i] = ((v / (1 + d2))[:, None] * diff).sum(0)
+        kl64 += (v * np.log1p(d2)).sum()
+    # fp32 against float64: rtol 1e-5 with a floor below the smallest force
+    np.testing.assert_allclose(f.numpy(), f64, rtol=1e-5, atol=1e-9)
+    np.testing.assert_allclose(float(kl), kl64, rtol=1e-5)
+    # row_len = None reads every entry
+    fa, _ = attractive.attractive_forces_ell(y, T(cols), T(vals))
+    fw, _ = ops.attractive_ell(y, T(cols), T(vals), T(np.full(n, w, np.int32)))
+    assert torch.equal(fa, fw)
+
+
+def test_ell_row_lengths_count_real_entries():
+    idx, cols, _ = symmetrized_graph(300, 10, seed=9)
+    n = cols.shape[0]
+    row_len = similarity.ell_row_lengths(cols)
+    assert row_len.dtype == np.int32
+    # the row's runs: its out-neighbours and the in-neighbours not among them
+    inn = [set() for _ in range(n)]
+    for i, row in enumerate(idx):
+        for j in row:
+            inn[j].add(i)
+    runs = np.array([len(set(idx[i]) | inn[i]) for i in range(n)])
+    np.testing.assert_array_equal(row_len, runs)
+    # padding (col = row) after the real entries, and only there
+    pad = np.arange(cols.shape[1])[None, :] >= row_len[:, None]
+    assert ((cols == np.arange(n)[:, None]) == pad).all()
+    # any ELL graph: one past the last entry with col != row
+    odd = np.array([[0, 1, 0, 0], [1, 1, 1, 1], [0, 2, 2, 2], [0, 3, 1, 3]])
+    assert similarity.ell_row_lengths(odd).tolist() == [2, 0, 1, 3]
 
 
 @pytest.mark.parametrize("n,k", [(1, 5), (65, 20), (500, 45), (1000, 90)])
@@ -131,6 +229,7 @@ def test_cpu_tensor_takes_plain_path_and_counts_no_launch():
     cent, r = morton.span_radius(y)
     ops.morton_encode(y, cent, r)
     ops.attractive_ell(y, cols, vals)
+    ops.attractive_ell(y, cols, vals, torch.full((50,), 2, dtype=torch.int32))
     ops.pairwise_sq_dists(y, y)
     ops.bsp_search(torch.abs(y), 1.5)
     assert all(v == 0 for v in ops.LAUNCHES.values())
@@ -154,3 +253,18 @@ def test_wrappers_reject_bad_inputs():
         ops.morton_encode(y, torch.zeros(2), torch.tensor(1.0), depth=17)
     with pytest.raises(ValueError, match="K="):
         ops.bsp_search(torch.zeros((2, 1025)), 2.0)
+
+
+@pytest.mark.parametrize("row_len,error,match", [
+    (torch.full((8,), 2, dtype=torch.int64), TypeError, "int32"),
+    (torch.full((9,), 2, dtype=torch.int32), ValueError, "shape"),
+    (torch.full((8, 1), 2, dtype=torch.int32), ValueError, "1-D"),
+    (torch.tensor([0, 1, 2, 3, 4, 1, 2, 3], dtype=torch.int32), ValueError, r"\[0, 3\]"),
+    (torch.tensor([0, 1, 2, -1, 3, 1, 2, 3], dtype=torch.int32), ValueError, r"\[0, 3\]"),
+])
+def test_attractive_rejects_bad_row_len(row_len, error, match):
+    y = torch.zeros((8, 2))
+    cols = torch.zeros((8, 3), dtype=torch.int32)
+    vals = torch.zeros((8, 3))
+    with pytest.raises(error, match=match):
+        ops.attractive_ell(y, cols, vals, row_len)

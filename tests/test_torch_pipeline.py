@@ -31,9 +31,9 @@ from repro_torch.api import (  # noqa: E402
     TSNE, BarnesHutBackend, ExactBackend, FFTBackend, TsneConfig, available_backends,
     make_backend, preprocess, run_tsne,
 )
-from repro_torch.core import similarity  # noqa: E402
+from repro_torch.core import attractive, similarity  # noqa: E402
 from repro_torch.core.knn import knn  # noqa: E402
-from repro_torch.core.tsne import init_state, tsne_step  # noqa: E402
+from repro_torch.core.tsne import bh_gradient, init_state, tsne_step  # noqa: E402
 from repro_torch.data.datasets import make_dataset  # noqa: E402
 from repro_torch.neighbors import (  # noqa: E402
     ExactNeighbors, available_neighbor_backends, make_neighbor_backend, recall_at_k,
@@ -161,6 +161,52 @@ def test_preprocess_chunked_matches_unchunked():
     assert tc["chunk_size"] == 64
     # row chunking is exact for BSP and bit-identical for symmetrization
     assert torch.equal(g.p_cols, gc.p_cols) and torch.equal(g.p_vals, gc.p_vals)
+
+
+def test_preprocess_p_len_counts_each_rows_runs():
+    x = make_points(260, seed=12, clusters=3, dim=8)
+    cfg = TsneConfig(perplexity=6.0)
+    g, t = preprocess(T(x), cfg)
+    k = t["n_neighbors"]
+    idx, _ = knn(T(x), k, block_q=cfg.knn_block_q, block_db=cfg.knn_block_db)
+    idx = idx.numpy()
+    # a row's runs: its out-neighbours and the in-neighbours not among them
+    inn = [set() for _ in range(len(x))]
+    for i, row in enumerate(idx):
+        for j in row:
+            inn[j].add(i)
+    runs = [len(set(idx[i]) | inn[i]) for i in range(len(x))]
+    assert g.p_len.dtype == torch.int32 and g.p_len.tolist() == runs
+    assert int(g.p_len.max()) == g.p_cols.shape[1] > float(g.p_len.float().mean())
+    # a graph carried over as numpy gets the same lengths
+    gc = convert.graph_from_numpy(g.p_cols.numpy(), g.p_vals.numpy(), float(g.p_logp),
+                                  device="cpu")
+    assert torch.equal(gc.p_len, g.p_len)
+    assert torch.equal(preprocess(T(x), TsneConfig(perplexity=6.0, chunk_size=50))[0].p_len,
+                       g.p_len)
+    ge, _ = preprocess(T(x), TsneConfig(perplexity=6.0, attractive_impl="edges"))
+    assert ge.p_len.shape == (1,)
+
+
+def test_backends_pass_p_len(monkeypatch):
+    x = make_points(200, seed=13, dim=6)
+    g, _ = preprocess(T(x), TsneConfig(perplexity=8.0))
+    y = T((np.random.default_rng(1).normal(size=(200, 2)) * 3).astype(np.float32))
+    seen = []
+    real = attractive.attractive_forces_ell
+
+    def spy(y, cols, vals, row_len=None):
+        seen.append(row_len)
+        return real(y, cols, vals, row_len)
+
+    monkeypatch.setattr(attractive, "attractive_forces_ell", spy)
+    bh = BarnesHutBackend().gradient(y, g, 12.0)
+    FFTBackend().gradient(y, g, 12.0)
+    assert len(seen) == 2 and all(r is g.p_len for r in seen)
+    # the padding the lengths skip adds exact zeros: the same gradient
+    full = bh_gradient(y, g.p_cols, g.p_vals, None, 0.5, 12.0, 16, g.p_logp)
+    assert seen[-1] is None
+    assert torch.equal(bh.grad, full.grad) and torch.equal(bh.kl, full.kl)
 
 
 # ------------------------------------------------------------ descent step --
