@@ -24,9 +24,14 @@ result line):
                rows' real lengths (p_len, as the fits call it) and over
                the full width W, both timed.
                The FFT path's spread and gather are also checked at
-               128 boxes (a lattice beyond shared memory) and exactly on
-               planted lattice-node points, boxes overhanging the
-               lattice's edges included.
+               128 boxes and exactly on planted lattice-node points, boxes
+               overhanging the lattice's edges included; the spread is
+               also checked for a bit-identical grid from two calls (48
+               and 128 boxes), over every lattice size (n_boxes 1-128,
+               N = 5 000), and on a compressed lattice (one far outlier
+               puts the other points into the first band), which is timed.
+               Device times from torch.profiler for every kernel row; the
+               spread's also at 128 boxes.
 4. gradient -- bh_gradient and fft_repulsion at a fixed y, N = 5 000, on
                the card against the port's own CPU path; and small fits
                (N = 500, Barnes-Hut and FFT) on the card against the same
@@ -50,11 +55,15 @@ result line):
 7. fft fit  -- the same fit with method="fft" (48 boxes a dimension) and
                the default 1 000 steps (250 exaggerated); pairwise, bsp,
                attractive, fft_spread and fft_gather must be > 0, with
-               spread = gather = attractive = steps run.
+               spread = gather = attractive = steps run.  A second descent
+               from the fit's graph and initial embedding
+               (core.tsne.descend, the loop run_tsne runs) must give a
+               bit-identical embedding and KL.
 8. fft breakdown -- one FFT step at its fitted embedding, stage by stage
                (coords, spread, convolution, gather, attractive, update)
                through the functions fft_repulsion calls, held against
-               the backend's own gradient; and the idle share as in 6.
+               the backend's own gradient; the spread kernel's device
+               time at the fitted embedding; and the idle share as in 6.
 
 Every kernel must be launched by at least one of the two fits.
 
@@ -148,13 +157,22 @@ def phase_build() -> None:
         "shared memory a block")
 
 
-def kernel_ms(fn, name: str, reps: int = 10) -> float:
-    """Device milliseconds a call of ``fn`` spends in the CUDA kernels whose
-    name holds ``name``, from a torch.profiler trace of ``reps`` calls."""
+def kernel_ms(fn, name: str, reps: int = 10) -> float | None:
+    """Device milliseconds of one launch of the CUDA kernel whose name holds
+    ``name`` (each wrapper launches one kernel a call): the mean over the
+    launches that a torch.profiler trace of ``reps`` calls of ``fn``
+    recorded.  The mean, not the sum over ``reps``: the trace can drop
+    events.  None ("not measured") if three traces recorded no such launch."""
     fn()
     torch.cuda.synchronize()
-    _, by_kernel = device_busy(lambda: [fn() for _ in range(reps)])
-    return sum(us for k, us in by_kernel.items() if name in k) * 1e-3 / reps
+    for _ in range(3):             # a trace that recorded no launch at all is taken again
+        found = [us for k, durations in kernel_events(lambda: [fn() for _ in range(reps)]).items()
+                 if name in k for us in durations]
+        if len(found) != reps:
+            log(f"device time of {name}: the trace recorded {len(found)} of {reps} launches")
+        if found:
+            return sum(found) * 1e-3 / len(found)
+    return None
 
 
 def pairwise_tol(d2, qn, cn):
@@ -234,6 +252,20 @@ def check_knn(x, k: int) -> None:
         f"plain k-th distance at most")
     if worst > 1.0:
         fail("the KNN from the kernel's tiles disagrees with the plain KNN")
+
+
+def check_spread(what: str, g_k, g_p, quiet: bool = False) -> None:
+    """The spread kernel's grid against the plain version's.  Both sum each
+    node over the same products in other orders (the kernel's fixed
+    in-order bands, the plain index_add_'s atomics on the card): rtol 1e-4
+    with a floor at 1e-5 of the largest node value."""
+    scale = float(g_p.abs().max())
+    err = float((g_k - g_p).abs().max())
+    if not torch.allclose(g_k, g_p, rtol=1e-4, atol=1e-5 * scale):
+        fail(f"fft_spread kernel disagrees ({what}): max |d| {err:.3e} of max {scale:.3e}")
+    if not quiet:
+        log(f"fft_spread {what}: max_abs_err {err:.3e} (max {scale:.3e}; rtol 1e-4, "
+            "atol 1e-5 x max)")
 
 
 def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
@@ -316,7 +348,8 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     row("morton_encode", float((codes_k - codes_p).abs().max()),
         cuda_ms(lambda: ops.morton_encode(y, cent, r_span), inner=20),
         cuda_ms(lambda: morton.morton_encode(y, cent, r_span), inner=20),
-        flops=6.0 * n, nbytes=8.0 * n + 8.0 * n + 12.0)
+        flops=6.0 * n, nbytes=8.0 * n + 8.0 * n + 12.0,
+        device_ms=kernel_ms(lambda: ops.morton_encode(y, cent, r_span), "morton"))
 
     # attractive_ell on the real symmetric graph of the main path, with the
     # rows' real lengths (as the fits call it) and over the full width
@@ -345,7 +378,7 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     a_flops, a_bytes = 13.0 * nnz, 8.0 * nnz + 8.0 * n + 4.0 * n + 8.0 * n + 4.0 * n
     a_bound, _ = bound(a_flops, a_bytes)
     log(f"attractive_ell full W (row_len=None): max_abs_err {errs['full W']:.3e}  "
-        f"{full_ms:.4f} ms ({full_dev:.4f} ms on the device)  {a_bound / full_ms:.1%} "
+        f"{full_ms:.4f} ms ({full_dev} ms on the device)  {a_bound / full_ms:.1%} "
         f"of the bound counted on nnz")
     row("attractive_ell", errs["p_len"],
         cuda_ms(lambda: ops.attractive_ell(y, cols, vals, p_len), inner=10),
@@ -354,21 +387,20 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
         device_ms=kernel_ms(lambda: ops.attractive_ell(y, cols, vals, p_len), "attractive"),
         nnz=nnz, full_w_ms=full_ms, full_w_device_ms=full_dev)
 
-    # fft_spread / fft_gather on the same N points: 48 boxes (97 x 97 nodes,
-    # the shared-memory spread) for the rows, 128 boxes (257 x 257, the
-    # global-memory spread) checked too
+    # fft_spread / fft_gather on the same N points: 48 boxes (97 x 97
+    # nodes, the main path's) for the rows, 128 boxes (257 x 257) checked
+    # and timed too
+    spread_extra = {}
     for n_boxes in (48, fft_repulsion.MAX_N_BOXES):
         base, wx, wy, _ = fft_repulsion.interp_coords(y, n_boxes)
         charges = fft_repulsion.point_charges(y)
         nodes = fft_repulsion.lattice_nodes(n_boxes)
         g_k = ops.fft_spread(base, wx, wy, charges, nodes)
         g_p = fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes)
-        # float atomics sum each node in a run-dependent order: rtol 1e-4
-        # with a floor at 1e-5 of the largest node value
-        g_scale = float(g_p.abs().max())
-        if not torch.allclose(g_k, g_p, rtol=1e-4, atol=1e-5 * g_scale):
-            fail(f"fft_spread kernel disagrees at {n_boxes} boxes: max |d| "
-                 f"{float((g_k - g_p).abs().max()):.3e} of max {g_scale:.3e}")
+        check_spread(f"{n_boxes} boxes", g_k, g_p)
+        # fixed-order sums: a second call gives the same bits
+        if not torch.equal(ops.fft_spread(base, wx, wy, charges, nodes), g_k):
+            fail(f"fft_spread kernel is not bit-identical from call to call at {n_boxes} boxes")
         pot = torch.randn((nodes, nodes, 4), generator=gen).to(dev)
         ph_k = ops.fft_gather(pot, base, wx, wy)
         ph_p = fft_repulsion.gather_from_grid(pot, base, wx, wy)
@@ -379,10 +411,10 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
         if not torch.allclose(ph_k, ph_p, rtol=1e-5, atol=1e-6 * ph_scale):
             fail(f"fft_gather kernel disagrees at {n_boxes} boxes: max |d| "
                  f"{float((ph_k - ph_p).abs().max()):.3e} of max {ph_scale:.3e}")
-        log(f"fft interp {n_boxes} boxes: spread max_abs_err "
-            f"{float((g_k - g_p).abs().max()):.3e} (max {g_scale:.3e}; rtol 1e-4, "
-            f"atol 1e-5 x max), gather max_abs_err {float((ph_k - ph_p).abs().max()):.3e} "
-            f"(max {ph_scale:.3e}; rtol 1e-5, atol 1e-6 x max)")
+        log(f"fft interp {n_boxes} boxes: spread plan {tuple(ops.spread_plan(n, nodes))}, "
+            f"bit-identical on a second call; gather max_abs_err "
+            f"{float((ph_k - ph_p).abs().max()):.3e} (max {ph_scale:.3e}; rtol 1e-5, "
+            "atol 1e-6 x max)")
 
         # planted lattice-node points: one-hot weights, integer charges;
         # every partial sum is an exact integer, so both must be exact.
@@ -405,18 +437,56 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
             "(boxes overhanging the lattice included)")
 
         if n_boxes == 48:
-            row("fft_spread", float((g_k - g_p).abs().max()),
-                cuda_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes), inner=20),
-                cuda_ms(lambda: fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes)),
-                # 9 tap weights + 27 products + 27 adds a point; base,
-                # weights and charges read once, the grid written once
-                flops=63.0 * n, nbytes=44.0 * n + 4.0 * nodes * nodes * 3)
-            row("fft_gather", float((ph_k - ph_p).abs().max()),
-                cuda_ms(lambda: ops.fft_gather(pot, base, wx, wy), inner=20),
-                cuda_ms(lambda: fft_repulsion.gather_from_grid(pot, base, wx, wy)),
-                # 9 tap weights + 36 products + 36 adds a point; base and
-                # weights read, phi written, the potential read once
-                flops=81.0 * n, nbytes=32.0 * n + 16.0 * n + 4.0 * nodes * nodes * 4)
+            row_48 = (base, wx, wy, charges, nodes, g_k, g_p, pot, ph_k, ph_p)
+        else:
+            spread_extra.update(
+                ms_128=cuda_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes), inner=20),
+                device_ms_128=kernel_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes),
+                                        "spread"))
+
+    # every lattice size, N = 5 000, at the same tolerance
+    for n_boxes in range(1, fft_repulsion.MAX_N_BOXES + 1):
+        ys = y[:5000]
+        base, wx, wy, _ = fft_repulsion.interp_coords(ys, n_boxes)
+        charges = fft_repulsion.point_charges(ys)
+        nodes = fft_repulsion.lattice_nodes(n_boxes)
+        check_spread(f"{n_boxes} boxes, N = 5 000", ops.fft_spread(base, wx, wy, charges, nodes),
+                     fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes), quiet=True)
+    log("fft_spread: n_boxes 1-128 at N = 5 000 within the tolerance")
+
+    # a compressed lattice: one point 1e4 away squeezes the other N - 1
+    # into the first band (and the first columns), the worst balance of
+    # the work between the kernel's blocks
+    y_far = y.clone()
+    y_far[0] = 1e4
+    base, wx, wy, _ = fft_repulsion.interp_coords(y_far, 48)
+    charges = fft_repulsion.point_charges(y_far)
+    nodes = fft_repulsion.lattice_nodes(48)
+    first_band = int((base[:, 0] < ops.spread_plan(n, nodes).rows_per_band).sum())
+    check_spread(f"compressed lattice ({first_band} of {n} points meet the first band)",
+                 ops.fft_spread(base, wx, wy, charges, nodes),
+                 fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes))
+    spread_extra.update(
+        compressed_ms=cuda_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes), inner=20),
+        compressed_device_ms=kernel_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes),
+                                       "spread"))
+
+    base, wx, wy, charges, nodes, g_k, g_p, pot, ph_k, ph_p = row_48
+    row("fft_spread", float((g_k - g_p).abs().max()),
+        cuda_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes), inner=20),
+        cuda_ms(lambda: fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes)),
+        # 9 tap weights + 27 products + 27 adds a point; base, weights and
+        # charges read once, the grid written once
+        flops=63.0 * n, nbytes=44.0 * n + 4.0 * nodes * nodes * 3,
+        device_ms=kernel_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes), "spread"),
+        **spread_extra)
+    row("fft_gather", float((ph_k - ph_p).abs().max()),
+        cuda_ms(lambda: ops.fft_gather(pot, base, wx, wy), inner=20),
+        cuda_ms(lambda: fft_repulsion.gather_from_grid(pot, base, wx, wy)),
+        # 9 tap weights + 36 products + 36 adds a point; base and weights
+        # read, phi written, the potential read once
+        flops=81.0 * n, nbytes=32.0 * n + 16.0 * n + 4.0 * nodes * nodes * 4,
+        device_ms=kernel_ms(lambda: ops.fft_gather(pot, base, wx, wy), "gather"))
     return rows
 
 
@@ -455,7 +525,7 @@ def phase_gradient(x: torch.Tensor) -> None:
     f_cpu, z_cpu = fft_on("cpu")
     rel = float(torch.linalg.norm(f_gpu - f_cpu) / torch.linalg.norm(f_cpu))
     z_rel = abs(z_gpu - z_cpu) / abs(z_cpu)
-    # cuFFT vs pocketfft and the spread's atomics order: forces to 1e-4
+    # cuFFT vs pocketfft and the spread's sum order: forces to 1e-4
     # relative, z to 1e-5
     log(f"fft_repulsion N={n}, 48 boxes: |f_gpu - f_cpu| / |f_cpu| = {rel:.3e}, "
         f"z gpu {z_gpu:.6f} cpu {z_cpu:.6f} (rel {z_rel:.3e})")
@@ -541,28 +611,57 @@ def check_launches(method: str, launches: dict, needed: tuple, steps: int | None
             fail(f"the {method} fit ran {steps} steps but launched {per_step}")
 
 
-def device_busy(fn) -> tuple[float, dict]:
-    """Seconds of CUDA kernel time in one call of ``fn`` from a
-    torch.profiler trace: the summed durations of the kernel events (CPU
-    ops' device time would count each kernel twice), and the same by
-    kernel name."""
+def check_reproducible(est) -> None:
+    """A second FFT descent from the fit's graph and initial embedding
+    (core.tsne.descend, the loop run_tsne ran, with the fit's config and
+    backend) must repeat the fit bit for bit: embedding and final KL."""
+    from repro_torch.api import make_backend
+    from repro_torch.core.tsne import descend, init_state
+    config = est._build_config()
+    n = est.embedding_.shape[0]
+    t0 = time.perf_counter()
+    state, kl, _, n_run = descend(init_state(n, config, "cuda"), est.neighbor_graph_, config,
+                                  make_backend(config.method, config, n),
+                                  config.resolve_lr(n), kl_every=est.kl_every)
+    y = state.y.cpu().numpy()
+    same = bool(np.array_equal(y, est.embedding_)) and kl == est.kl_divergence_
+    log(f"{config.method} second descent, {n_run} steps in {time.perf_counter() - t0:.2f} s: "
+        f"KL {kl} (fit {est.kl_divergence_}), max |d embedding| "
+        f"{float(np.abs(y - est.embedding_).max()):.3e}, bit-identical {same}")
+    if not same or n_run != est.n_iter_:
+        fail(f"a second {config.method} descent from the same graph and initial embedding "
+             "does not repeat the fit bit for bit")
+
+
+def kernel_events(fn) -> dict[str, list[float]]:
+    """Kernel name -> the durations (us) of its launches in one call of
+    ``fn``, from a torch.profiler trace (the kernel events themselves: CPU
+    ops' device time would count each kernel twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_kernel: dict[str, float] = {}
+    events: dict[str, list[float]] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+            events.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return events
+
+
+def device_busy(fn) -> tuple[float, dict]:
+    """Seconds of CUDA kernel time in one call of ``fn`` (the summed
+    durations of its kernel events), and the same by kernel name (us)."""
+    by_kernel = {k: sum(v) for k, v in kernel_events(fn).items()}
     return sum(by_kernel.values()) * 1e-6, by_kernel
 
 
-def add_busy_share(out: dict, step, inner: int) -> None:
+def add_busy_share(out: dict, step, inner: int) -> dict:
     """out gains step_s (CUDA-event time of ``inner`` back-to-back calls of
     ``step`` with no sync between them, as the fit runs its steps, over
     ``inner``; median of 3), device_busy_s (kernel time of one profiled
-    ``step``) and device_idle_share = 1 - busy / step_s."""
+    ``step``) and device_idle_share = 1 - busy / step_s.  Returns the
+    profiled step's kernel time by kernel name (us)."""
     out["step_s"] = cuda_ms(step, reps=3, inner=inner) * 1e-3
     busy_s, by_kernel = device_busy(step)
     if busy_s > 0:
@@ -575,23 +674,25 @@ def add_busy_share(out: dict, step, inner: int) -> None:
             {k[:70]: v * 1e-3 for k, v in top}))
     else:
         log("step device time: not measured (the profiler recorded no kernel)")
+    return by_kernel
 
 
 def check_same_step(what: str, res, ref, f_rep) -> None:
     """The breakdown's stage-by-stage GradResult ``res`` against the
     backend's own ``ref``: a breakdown that drifted from the step it times
-    fails here.  The two calls differ only in the order of float atomics
-    (the FFT spread).  At a fitted embedding the gradient is a small
-    difference of the attractive and repulsive terms, so its difference is
-    measured against the repulsive term 4 F_rep / Z.  The FFT force
-    y * phi0 - phi1 is itself a cancelling difference, which turns ~1e-7
-    of atomics noise in the lattice into ~5e-5 of the term; a drifted step
-    differs by the order of the term.  So: below 1e-3, and Z to 1e-5."""
+    fails here.  The two calls run the same kernels on the same inputs;
+    they can differ only where an operation sums in a run-dependent order.
+    At a fitted embedding the gradient is a small difference of the
+    attractive and repulsive terms, so its difference is measured against
+    the repulsive term 4 F_rep / Z.  The FFT force y * phi0 - phi1 is
+    itself a cancelling difference, which turns ~1e-7 of reordering noise
+    in the lattice into ~5e-5 of the term; a drifted step differs by the
+    order of the term.  So: below 1e-3, and Z to 1e-5."""
     term = float(torch.linalg.norm(4.0 * f_rep / res.z))
     rel = float(torch.linalg.norm(res.grad - ref.grad)) / term
     z_rel = abs(float(res.z) - float(ref.z)) / float(ref.z)
     log(f"{what} breakdown vs backend.gradient: |d grad| / |4 F_rep / Z| = {rel:.3e}, "
-        f"Z relative {z_rel:.3e}")
+        f"Z relative {z_rel:.3e}, bit-identical {torch.equal(res.grad, ref.grad)}")
     if not (rel <= 1e-3 and z_rel <= 1e-5):
         fail(f"{what} breakdown's step differs from the backend's")
 
@@ -710,9 +811,17 @@ def phase_fft_breakdown(est) -> dict:
         runs.append(lap.t)
     check_same_step("fft", res, backend.gradient(y, g, 1.0), f_rep)
     out = median_laps(runs)
+    nodes = fr.lattice_nodes(backend.n_boxes)
+    out["spread_plan"] = list(ops.spread_plan(y.shape[0], nodes))
+    out["spread_device_ms"] = kernel_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes),
+                                        "spread")
     # the card's busy time over one whole descent step (gradient + update)
-    add_busy_share(out, lambda: tsne_step(state, g, 1.0, 0.8, backend=backend,
-                                          lr=est.learning_rate_, min_gain=0.01), inner=20)
+    by_kernel = add_busy_share(out, lambda: tsne_step(state, g, 1.0, 0.8, backend=backend,
+                                                      lr=est.learning_rate_, min_gain=0.01),
+                               inner=20)
+    # the spread kernel's device time in the profiled step, beside kernel_ms's
+    spread_us = [us for k, us in by_kernel.items() if "spread" in k]
+    out["spread_step_device_ms"] = sum(spread_us) * 1e-3 if spread_us else None
     log("fft step breakdown at the fitted embedding (s): " + json.dumps(out))
     return out
 
@@ -752,7 +861,8 @@ def main() -> None:
     phase_breakdown(est)
     est, fft_launches = phase_fit(x_np, "fft", *steps(1000, 250), args.kl_every)
     check_launches("fft", fft_launches, FFT_KERNELS, steps=est.n_iter_)
-    phase_fft_breakdown(est)
+    check_reproducible(est)
+    fft_breakdown = phase_fft_breakdown(est)
 
     unlaunched = [k for k in ops.LAUNCHES if bh_launches[k] + fft_launches[k] == 0]
     if unlaunched:
@@ -761,6 +871,8 @@ def main() -> None:
         path = "barnes_hut" if r["name"] in BH_KERNELS else "fft"
         r["path"] = path
         r["launches"] = (bh_launches if path == "barnes_hut" else fft_launches)[r["name"]]
+        if r["name"] == "fft_spread":
+            r["fitted_device_ms"] = fft_breakdown["spread_device_ms"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

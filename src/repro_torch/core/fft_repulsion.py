@@ -23,9 +23,8 @@ import torch
 P_ORDER = 3  # interpolation nodes per box per dim
 
 # Hard cap on the boxes-per-dim lattice resolution (the reference's
-# envelope).  At 128 boxes the [257, 257, 3] spread lattice is 775 KiB,
-# beyond a block's shared memory, so the spread kernel also has a
-# global-memory path.
+# envelope).  The spread kernel keeps a band of lattice rows in shared
+# memory, which fits at every size up to this one.
 MAX_N_BOXES = 128
 
 def check_n_boxes(n_boxes: int) -> None:
@@ -81,8 +80,8 @@ def _taps(base: torch.Tensor, nodes: int):
     on_x = (gx >= 0) & (gx < nodes)
     on_y = (gy >= 0) & (gy < nodes)
     n = base.shape[0]
-    on = (on_x[:, :, None] & on_y[:, None, :]).reshape(n, -1)
-    flat = (gx[:, :, None] * nodes + gy[:, None, :]).reshape(n, -1)
+    on = (on_x[:, :, None] & on_y[:, None, :]).reshape(n, P_ORDER * P_ORDER)
+    flat = (gx[:, :, None] * nodes + gy[:, None, :]).reshape(n, P_ORDER * P_ORDER)
     return torch.where(on, flat, 0), on
 
 
@@ -94,7 +93,7 @@ def spread_to_grid(base, wx, wy, charges, nodes: int) -> torch.Tensor:
     """
     n, c = charges.shape
     idx, on = _taps(base, nodes)
-    w2d = (wx[:, :, None] * wy[:, None, :]).reshape(n, -1)      # [N,9]
+    w2d = (wx[:, :, None] * wy[:, None, :]).reshape(n, P_ORDER * P_ORDER)  # [N,9]
     contrib = w2d[:, :, None] * charges[:, None, :]             # [N,9,C]
     contrib = torch.where(on[:, :, None], contrib, 0.0)
     grid = torch.zeros((nodes * nodes, c), dtype=charges.dtype, device=charges.device)
@@ -111,7 +110,7 @@ def gather_from_grid(pot, base, wx, wy) -> torch.Tensor:
     nodes, _, c = pot.shape
     n = base.shape[0]
     idx, on = _taps(base, nodes)
-    w2d = (wx[:, :, None] * wy[:, None, :]).reshape(n, -1)      # [N,9]
+    w2d = (wx[:, :, None] * wy[:, None, :]).reshape(n, P_ORDER * P_ORDER)  # [N,9]
     vals = torch.where(on[:, :, None], pot.reshape(-1, c)[idx], 0.0)  # [N,9,C]
     return torch.sum(vals * w2d[:, :, None], dim=1)             # [N,C]
 

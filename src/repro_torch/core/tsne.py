@@ -368,34 +368,46 @@ def run_tsne(x, config: TsneConfig = TsneConfig(), observer: ObserverFn | None =
         from repro_torch.api.backends import make_backend   # lazy: api builds on core
         backend = make_backend(config.method, config, n)
 
-    kl_hist = []
-    kl = float("nan")
-    it = 0
     with _phase(timings, "gradient_descent", dev):
-        t0 = time.perf_counter()
-        for it in range(config.n_iter):
-            exag = config.early_exaggeration if it < config.exaggeration_iters else 1.0
-            mom = config.momentum_initial if it < config.momentum_switch_iter \
-                else config.momentum_final
-            state, stats = tsne_step(state, graph, exag, mom, backend=backend,
-                                     lr=lr, min_gain=config.min_gain)
-            if (it + 1) % kl_every == 0 or it == config.n_iter - 1:
-                kl = float(stats.kl)
-                grad_norm = float(stats.grad_norm)
-                kl_hist.append((it + 1, kl))
-                if observer is not None:
-                    observer(IterationStats(
-                        iteration=it + 1, kl=kl, grad_norm=grad_norm,
-                        z=float(stats.z), max_traversal=int(stats.max_traversal),
-                        exaggeration=exag, momentum=mom,
-                        elapsed_s=time.perf_counter() - t0))
-                if grad_norm < config.min_grad_norm:
-                    break
+        state, kl, kl_hist, n_run = descend(state, graph, config, backend, lr,
+                                            observer, kl_every)
     return TsneResult(
         y=state.y.cpu().numpy(),
         kl=kl,
         kl_history=np.asarray(kl_hist, np.float64) if kl_hist else np.zeros((0, 2)),
         timings=timings,
-        n_iter=it + 1,
+        n_iter=n_run,
         graph=graph,
     )
+
+
+def descend(state: TsneState, graph: NeighborGraph, config: TsneConfig, backend,
+            lr: float, observer: ObserverFn | None = None, kl_every: int = 50):
+    """The gradient descent of :func:`run_tsne` from ``state``: the
+    exaggeration and momentum schedules of ``config``, KL read every
+    ``kl_every`` iterations (and on the last), early stop on
+    ``config.min_grad_norm`` there.  Returns (final state, last KL, KL
+    history [(iteration, KL)], iterations run)."""
+    kl_hist = []
+    kl = float("nan")
+    it = 0
+    t0 = time.perf_counter()
+    for it in range(config.n_iter):
+        exag = config.early_exaggeration if it < config.exaggeration_iters else 1.0
+        mom = config.momentum_initial if it < config.momentum_switch_iter \
+            else config.momentum_final
+        state, stats = tsne_step(state, graph, exag, mom, backend=backend,
+                                 lr=lr, min_gain=config.min_gain)
+        if (it + 1) % kl_every == 0 or it == config.n_iter - 1:
+            kl = float(stats.kl)
+            grad_norm = float(stats.grad_norm)
+            kl_hist.append((it + 1, kl))
+            if observer is not None:
+                observer(IterationStats(
+                    iteration=it + 1, kl=kl, grad_norm=grad_norm,
+                    z=float(stats.z), max_traversal=int(stats.max_traversal),
+                    exaggeration=exag, momentum=mom,
+                    elapsed_s=time.perf_counter() - t0))
+            if grad_norm < config.min_grad_norm:
+                break
+    return state, kl, kl_hist, it + 1

@@ -16,6 +16,7 @@ version, CUDA wrapper, CUDA source and the TPU kernel it replaces.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -30,12 +31,13 @@ LAUNCHES: dict[str, int] = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "pairwise": ("pairwise_sq_dists", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "bsp": ("bsp_search", [_P, _P, _P, _I, _I, _F, _F, _I, _P]),
     "morton": ("morton_encode", [_P, _P, _P, _I, _I, _P]),
     "attractive": ("attractive_ell", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
-    "spread": ("fft_spread", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "spread": ("fft_spread", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P]),
     "gather": ("fft_gather", [_P, _P, _P, _P, _P, _I, _I, _P]),
 }
 
@@ -254,6 +256,63 @@ def _check_nodes(nodes: int) -> None:
                          f"[1, {fft_repulsion.MAX_N_BOXES}]")
 
 
+# Launch plan of csrc/spread.cu.  Its shared-memory layout is mirrored in
+# spread_smem_bytes, and the C entry refuses a plan whose byte count
+# differs from its own.  The numbers are the ones chip_variants.py's spread
+# set picked on an H100 (PERF.md, Findings).
+SPREAD_SCAN = 8              # batches of 32 points a warp scans a segment (SCAN)
+SPREAD_ROWS = 4              # lattice rows a band
+SPREAD_WARPS = 8             # warps a CTA, at most
+SPREAD_POINTS_A_WARP = 64    # fewest points a slice gives each warp
+SPREAD_MAX_SLICES = 8        # CTAs a band: one cluster, at most the portable size
+SMEM_LIMIT = 232_448         # dynamic shared memory a block can opt into (227 KiB)
+SMEM_TWO_A_SM = 115_712      # at most this much lets two blocks share an SM (228 KiB)
+
+
+class SpreadPlan(NamedTuple):
+    rows_per_band: int
+    slices: int
+    warps: int
+    smem_bytes: int
+
+
+def spread_smem_bytes(nodes: int, channels: int, rows: int, warps: int) -> int:
+    """Dynamic shared memory of one spread CTA: per warp one band copy (rows
+    padded to 3 c banks apart), a dummy word, 32 tap records (offset, mask,
+    9 c products; an odd word count), its SCAN x 32 places of the segment's
+    hit list and its hit count."""
+    p = fft_repulsion.P_ORDER
+    words = nodes * channels
+    stride = words + (3 * channels - words) % 32
+    record = (p * p * channels + 2) | 1
+    return 4 * warps * (rows * stride + 1 + 32 * record + SPREAD_SCAN * 32 + 1)
+
+
+def spread_plan(n: int, nodes: int, channels: int = 3) -> SpreadPlan:
+    """The spread kernel's launch plan for n points on a nodes x nodes x
+    channels lattice: bands of ``rows_per_band`` rows (grid.y =
+    ceil(nodes / rows)), ``slices`` CTAs a band, one cluster (grid.x), each
+    walking a contiguous slice of the points with ``warps`` warps.  From
+    SPREAD_ROWS and SPREAD_WARPS, warps are halved until two CTAs fit an
+    SM's shared memory (at 128 boxes: 4), rows until one does; a slice gets
+    at least SPREAD_POINTS_A_WARP points a warp.  Depends on the shapes
+    only, so every call at the same shapes sums in the same order."""
+    rows, warps = min(SPREAD_ROWS, nodes), SPREAD_WARPS
+    while warps > 1 and spread_smem_bytes(nodes, channels, rows, warps) > SMEM_TWO_A_SM:
+        warps //= 2
+    while True:
+        smem = spread_smem_bytes(nodes, channels, rows, warps)
+        if smem <= SMEM_LIMIT:
+            slices = max(1, min(SPREAD_MAX_SLICES, -(-n // (SPREAD_POINTS_A_WARP * warps))))
+            return SpreadPlan(rows, slices, warps, smem)
+        if rows > 1:
+            rows //= 2
+        else:
+            raise ValueError(f"fft_spread: {channels} channels on a {nodes}-node lattice "
+                             f"need {smem} bytes of shared memory a band row, over "
+                             f"{SMEM_LIMIT}")
+
+
 def fft_spread(base: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
                charges: torch.Tensor, nodes: int) -> torch.Tensor:
     """Spread charges [N, C] onto the lattice: -> grid [nodes, nodes, C] fp32.
@@ -271,11 +330,14 @@ def fft_spread(base: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
 
 def fft_spread_cuda(base, wx, wy, charges, nodes: int) -> torch.Tensor:
     n, c = charges.shape
-    # zeroed here: the kernel adds into the grid with atomics
-    grid = torch.zeros((nodes, nodes, c), dtype=torch.float32, device=charges.device)
-    if n and c:
+    if base.data_ptr() % 8:
+        raise ValueError("base must be 8-byte aligned (the kernel reads a point's base as an int2)")
+    # every node is written by the kernel: no zeroing
+    grid = torch.empty((nodes, nodes, c), dtype=torch.float32, device=charges.device)
+    if c:
         _launch("fft_spread", "spread", charges.device, base.data_ptr(), wx.data_ptr(),
-                wy.data_ptr(), charges.data_ptr(), grid.data_ptr(), n, nodes, c)
+                wy.data_ptr(), charges.data_ptr(), grid.data_ptr(), n, nodes, c,
+                *spread_plan(n, nodes, c))
     return grid
 
 
@@ -356,7 +418,7 @@ def kernel_registry() -> dict:
             source="src/repro_torch/csrc/spread.cu",
             tpu="src/repro/kernels/interp_kernel.py:_spread_kernel",
             replaces="src/repro/kernels/interp_kernel.py:52",
-            doc="FFT repulsion: 3x3 Lagrange spread, shared-memory lattice + atomics"),
+            doc="FFT repulsion: 3x3 Lagrange spread, lattice bands in clusters, no atomics"),
         "fft_gather": dict(
             plain=fft_repulsion.gather_from_grid, cuda=fft_gather_cuda,
             wrapper=fft_gather,

@@ -122,7 +122,7 @@ def test_interp_matches_jax_oracle_and_pallas(n, n_boxes):
 
 
 def test_interp_at_max_boxes_matches_jax_oracle():
-    # 128 boxes: the lattice beyond the CUDA spread kernel's shared memory
+    # 128 boxes: the largest lattice, 65 bands of the CUDA spread kernel
     nodes, base, wx, wy, charges, pot = _interp_case(4000, fft.MAX_N_BOXES)
     assert nodes == 257
     g = ops.fft_spread(T(base), T(wx), T(wy), T(charges), nodes).numpy()
@@ -260,6 +260,51 @@ def test_fft_wrappers_on_cpu_count_no_launch():
     assert ops.LAUNCHES["fft_spread"] == ops.LAUNCHES["fft_gather"] == 0
 
 
+def test_spread_of_no_points_is_zero():
+    # the kernel writes every node, points or none; the plain twin agrees
+    grid = ops.fft_spread(torch.zeros((0, 2), dtype=torch.int32), torch.zeros((0, 3)),
+                          torch.zeros((0, 3)), torch.zeros((0, 3)), 97)
+    assert grid.shape == (97, 97, 3) and not grid.any()
+
+
+# ------------------------------------------------------------ spread plan --
+
+@pytest.mark.parametrize("n", [1, 500, 70_000])
+def test_spread_plan_covers_the_lattice(n):
+    for n_boxes in range(1, fft.MAX_N_BOXES + 1):
+        nodes = fft.lattice_nodes(n_boxes)
+        plan = ops.spread_plan(n, nodes)
+        rows = plan.rows_per_band
+        bands = -(-nodes // rows)
+        # band b owns rows [b R, min((b + 1) R, nodes)): every row once
+        owned = [r for b in range(bands) for r in range(b * rows, min((b + 1) * rows, nodes))]
+        assert owned == list(range(nodes))
+        assert 1 <= plan.slices <= ops.SPREAD_MAX_SLICES       # one portable cluster
+        assert 1 <= plan.warps <= ops.SPREAD_WARPS
+        assert plan.smem_bytes == ops.spread_smem_bytes(nodes, 3, rows, plan.warps)
+        assert plan.smem_bytes <= ops.SMEM_LIMIT == 227 * 1024
+        # a slice gives every warp some points; one slice for few points
+        assert plan.slices == 1 or n >= (plan.slices - 1) * ops.SPREAD_POINTS_A_WARP * plan.warps
+
+
+def test_spread_plan_fills_the_h100_at_the_main_path():
+    # MNIST size at the default 48 boxes: at least one CTA for each of
+    # the H100's 132 SMs, two CTAs an SM by shared memory
+    plan = ops.spread_plan(70_000, fft.lattice_nodes(48))
+    assert plan.slices * -(-fft.lattice_nodes(48) // plan.rows_per_band) >= 132
+    assert plan.smem_bytes <= ops.SMEM_TWO_A_SM
+    # the largest lattice keeps two CTAs an SM with fewer warps
+    big = ops.spread_plan(70_000, fft.lattice_nodes(fft.MAX_N_BOXES))
+    assert big.smem_bytes <= ops.SMEM_TWO_A_SM and big.warps < plan.warps
+
+
+def test_spread_plan_rejects_what_the_kernel_cannot_run():
+    # a band row of 150 channels on the largest lattice is over a block's
+    # shared memory with one warp
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.spread_plan(100, fft.lattice_nodes(fft.MAX_N_BOXES), channels=150)
+
+
 def test_fft_wrappers_reject_bad_inputs():
     nodes, base, wx, wy, charges, pot = _interp_case(30, 8)
     b, x, yw, ch, p = T(base), T(wx), T(wy), T(charges), T(pot)
@@ -283,3 +328,23 @@ def test_fft_wrappers_reject_bad_inputs():
         ops.fft_gather(p[..., :3].contiguous(), b, x, yw)
     with pytest.raises(ValueError, match="different devices"):
         ops.fft_gather(p.to("meta"), b, x, yw)
+
+
+def test_descend_repeats_the_fit():
+    # a second descent from the fit's graph and initial embedding, as
+    # chip_smoke.py runs it on the card, repeats the fit bit for bit
+    from repro_torch.api import TSNE, make_backend
+    from repro_torch.core.tsne import descend, init_state
+    x = np.random.default_rng(3).normal(size=(150, 8)).astype(np.float32)
+    est = TSNE(method="fft", perplexity=10.0, n_iter=40, kl_every=20, random_state=0,
+               device="cpu", backend_options=dict(exaggeration_iters=10,
+                                                  momentum_switch_iter=10))
+    est.fit(x)
+    config = est._build_config()
+    n = x.shape[0]
+    state, kl, kl_hist, n_run = descend(init_state(n, config, "cpu"), est.neighbor_graph_,
+                                        config, make_backend("fft", config, n),
+                                        config.resolve_lr(n), kl_every=est.kl_every)
+    np.testing.assert_array_equal(state.y.numpy(), est.embedding_)
+    assert kl == est.kl_divergence_ and n_run == est.n_iter_ == 40
+    np.testing.assert_array_equal(np.asarray(kl_hist), est.kl_history_)
