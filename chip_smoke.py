@@ -22,14 +22,22 @@ result line):
                at D = 781, and by the KNN of 4 096 queries from its tiles
                against the KNN from the plain tiles; attractive with the
                rows' real lengths (p_len, as the fits call it) and over
-               the full width W, both timed.
+               the full width W, both timed.  bsp is also checked on
+               4 096 rows at every K where ops.bsp_plan changes its
+               choice (1 .. 1024), rows of all-equal distances and of
+               zeros among them, and the chunked search must repeat the
+               whole one bit for bit; its bound counts the SFU's
+               exponentials.
                The FFT path's spread and gather are also checked at
                128 boxes and exactly on planted lattice-node points, boxes
-               overhanging the lattice's edges included; the spread is
-               also checked for a bit-identical grid from two calls (48
-               and 128 boxes), over every lattice size (n_boxes 1-128,
-               N = 5 000), and on a compressed lattice (one far outlier
-               puts the other points into the first band), which is timed.
+               overhanging the lattice's edges included; both are checked
+               for a bit-identical result from two calls (48 and 128
+               boxes) and over every lattice size (n_boxes 1-128,
+               N = 5 000; the gather also at N = 1, 31 and 33); the
+               gather with real weights on boxes that overhang the
+               lattice (its checked path); the spread on a compressed
+               lattice (one far outlier puts the other points into the
+               first band), which is timed.
                Device times from torch.profiler for every kernel row; the
                spread's also at 128 boxes.
 4. gradient -- bh_gradient and fft_repulsion at a fixed y, N = 5 000, on
@@ -62,8 +70,9 @@ result line):
 8. fft breakdown -- one FFT step at its fitted embedding, stage by stage
                (coords, spread, convolution, gather, attractive, update)
                through the functions fft_repulsion calls, held against
-               the backend's own gradient; the spread kernel's device
-               time at the fitted embedding; and the idle share as in 6.
+               the backend's own gradient; the spread and gather kernels'
+               device times at the fitted embedding, alone and in the
+               profiled step; and the idle share as in 6.
 
 Every kernel must be launched by at least one of the two fits.
 
@@ -85,10 +94,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # H100 SXM data-sheet peaks (dense): fp32 outside the tensor cores, TF32
-# on the tensor cores, HBM3.
+# on the tensor cores, HBM3; and the special-function units (MUFU: exp2,
+# log2, reciprocal), 16 results a clock on each of 132 SMs at 1.98 GHz.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_SFU_OPS = 132 * 16 * 1.98e9
 
 # Main-path KNN blocks: larger than the JAX defaults (512 x 2048), which
 # were sized for TPU VMEM; a [4096, 8192] fp32 tile is 128 MiB on the card.
@@ -121,10 +132,12 @@ def cuda_ms(fn, reps: int = 5, inner: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    """(ms, "operations" or "bytes"): the larger of flops at ``peak`` and
-    nbytes at the HBM rate."""
-    t_ops = flops / peak * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS,
+          sfu: float = 0.0) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the largest of flops at ``peak``, sfu
+    special-function results (an expf is one) at the SFU rate, and nbytes
+    at the HBM rate."""
+    t_ops = max(flops / peak, sfu / PEAK_SFU_OPS) * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -155,6 +168,11 @@ def phase_build() -> None:
                 log(f"  {name}:   {line.strip()}")
     log(f"  pairwise: {build.load('pairwise').pairwise_smem_bytes()} bytes of dynamic "
         "shared memory a block")
+    from repro_torch.kernels import ops
+    chunk = build.load("gather").fft_gather_chunk()
+    if chunk != ops.GATHER_CHUNK:
+        fail(f"gather.cu walks chunks of {chunk} points, ops.GATHER_CHUNK says "
+             f"{ops.GATHER_CHUNK}")
 
 
 def kernel_ms(fn, name: str, reps: int = 10) -> float | None:
@@ -268,6 +286,59 @@ def check_spread(what: str, g_k, g_p, quiet: bool = False) -> None:
             "atol 1e-5 x max)")
 
 
+def check_bsp(what: str, p_k, b_k, p_p, b_p, quiet: bool = False) -> None:
+    """The bsp kernel against the plain search: cond_p at rtol 1e-5 (atol
+    1e-7), beta at rtol 1e-5, the Pallas kernel's parity target."""
+    if not (torch.allclose(p_k, p_p, rtol=1e-5, atol=1e-7)
+            and torch.allclose(b_k, b_p, rtol=1e-5)):
+        fail(f"bsp_search kernel disagrees ({what}): max |dp| "
+             f"{float((p_k - p_p).abs().max()):.3e}, max |dbeta|/beta "
+             f"{float(((b_k - b_p).abs() / b_p.abs()).max()):.3e}")
+    if not quiet:
+        log(f"bsp_search {what}: max |dp| {float((p_k - p_p).abs().max()):.3e}, max "
+            f"|dbeta|/beta {float(((b_k - b_p).abs() / b_p.abs()).nan_to_num().max()):.3e} "
+            "(rtol 1e-5, atol 1e-7)")
+
+
+def check_bsp_plans(gen, dev) -> None:
+    """4 096 rows at every K where ops.bsp_plan changes its choice, and
+    either side of it, with rows of all-equal distances and rows of zeros
+    among them; perplexity K / 3, as the fits pick K, from K = 9 on, and
+    1.5 below: at perplexity 1 or 2 and such K the target entropy sits on
+    the plateau of near-tied nearest neighbours, where fp32 cannot decide
+    the bisection (the plain search on the CPU and on the card disagree
+    there in hundreds of rows; chip_variants.py's bsp set, PERF.md)."""
+    from repro_torch.core import bsp
+    from repro_torch.kernels import ops
+    changes = [k for k in range(2, ops.MAX_K + 1) if ops.bsp_plan(k) != ops.bsp_plan(k - 1)]
+    ks = sorted({1, 5, 8, 16, 31, 32, 33, 64, 90, 96, 100, 128, 129, 256, 500, 1024}
+                | set(changes) | {k - 1 for k in changes})
+    for k in ks:
+        d2 = torch.randn((4096, k), generator=gen).abs() * 4.0
+        d2[::97] = 2.5           # all-equal distances
+        d2[1::97] = 0.0          # zeros
+        d2 = d2.to(dev)
+        perp = k / 3.0 if k >= 9 else 1.5
+        check_bsp(f"K = {k}", *ops.bsp_search(d2, perp),
+                  *bsp.binary_search_perplexity_plain(d2, perp), quiet=True)
+    log(f"bsp_search: K = {ks} (each side of every change of plan) on 4 096 rows, with "
+        "all-equal and zero rows, within the tolerance")
+
+
+def check_gather(what: str, ph_k, ph_p, quiet: bool = False) -> float:
+    """The gather kernel against the plain gather: the same products and
+    sum order, rtol 1e-5 with a floor at 1e-6 of the largest value where
+    the 9 taps' signed Lagrange weights cancel.  Returns the largest error."""
+    ph_scale = float(ph_p.abs().max()) if ph_p.numel() else 0.0
+    err = float((ph_k - ph_p).abs().max()) if ph_p.numel() else 0.0
+    if not torch.allclose(ph_k, ph_p, rtol=1e-5, atol=1e-6 * ph_scale):
+        fail(f"fft_gather kernel disagrees ({what}): max |d| {err:.3e} of max {ph_scale:.3e}")
+    if not quiet:
+        log(f"fft_gather {what}: max_abs_err {err:.3e} (max {ph_scale:.3e}; rtol 1e-5, "
+            "atol 1e-6 x max)")
+    return err
+
+
 def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     from repro_torch.core import (
         _pairwise, attractive, bsp, fft_repulsion, knn, morton, similarity,
@@ -281,8 +352,8 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     rows = []
 
     def row(name, err, ms, plain_ms, flops, nbytes, library_ms=None,
-            peak=PEAK_FP32_FLOPS, **extra):
-        b_ms, b_by = bound(flops, nbytes, peak)
+            peak=PEAK_FP32_FLOPS, sfu=0.0, **extra):
+        b_ms, b_by = bound(flops, nbytes, peak, sfu)
         e = reg[name]
         rows.append(dict(name=name, route="cuda", source=e["source"],
                          replaces=e["replaces"], tpu_kernel=e["tpu"], launches=0,
@@ -325,18 +396,24 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     idx, d2 = knn.knn(x, k, KNN_BLOCK_Q, KNN_BLOCK_DB)
     p_k, b_k = ops.bsp_search(d2, perplexity)
     p_p, b_p = bsp.binary_search_perplexity_plain(d2, perplexity)
-    # rtol 1e-5: the parity target of the Pallas kernel against XLA
-    if not (torch.allclose(p_k, p_p, rtol=1e-5, atol=1e-7)
-            and torch.allclose(b_k, b_p, rtol=1e-5)):
-        fail(f"bsp_search kernel disagrees: max |dp| {float((p_k - p_p).abs().max()):.3e}, "
-             f"max |dbeta|/beta {float(((b_k - b_p).abs() / b_p.abs()).max()):.3e}")
+    check_bsp(f"[{n}, {k}], plan {tuple(ops.bsp_plan(k))}", p_k, b_k, p_p, b_p)
+    # rows are independent and a row's arithmetic depends on K alone: the
+    # chunked search (row slices at no 16-byte boundary) repeats it bit for bit
+    p_c, b_c = bsp.binary_search_perplexity_chunked(d2, perplexity, chunk_size=10_007)
+    if not (torch.equal(p_c, p_k) and torch.equal(b_c, b_k)):
+        fail("bsp_search in chunks of 10 007 rows differs from the whole search")
+    check_bsp_plans(torch.Generator(device="cpu").manual_seed(15), dev)
     nk = d2.numel()
+    fp32_ms, _ = bound(65.0 * 6.0 * nk, 0.0)
     row("bsp_search", float((p_k - p_p).abs().max()),
         cuda_ms(lambda: ops.bsp_search(d2, perplexity)),
         cuda_ms(lambda: bsp.binary_search_perplexity_plain(d2, perplexity), reps=3, inner=1),
-        # 65 passes (64 bisection steps + the final one), each an exp and
-        # ~5 fp32 operations an entry; d2 read once, cond_p written once
-        flops=65.0 * 6.0 * nk, nbytes=4.0 * (2 * nk + n))
+        # 65 passes (64 bisection steps + the final one), each an expf (one
+        # SFU result) and ~5 fp32 operations an entry; d2 read once,
+        # cond_p written once
+        flops=65.0 * 6.0 * nk, nbytes=4.0 * (2 * nk + n), sfu=65.0 * nk,
+        device_ms=kernel_ms(lambda: ops.bsp_search(d2, perplexity), "bsp"),
+        plan=list(ops.bsp_plan(k)), bound_fp32_ms=fp32_ms)
 
     # morton_encode on N points of an embedding-sized spread
     y = (torch.randn((n, 2), generator=gen) * 20.0).to(dev)
@@ -404,17 +481,21 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
         pot = torch.randn((nodes, nodes, 4), generator=gen).to(dev)
         ph_k = ops.fft_gather(pot, base, wx, wy)
         ph_p = fft_repulsion.gather_from_grid(pot, base, wx, wy)
-        # the same products and sum order as the plain version: rtol 1e-5,
-        # with a floor at 1e-6 of the largest value where the 9 taps'
-        # signed Lagrange weights cancel
-        ph_scale = float(ph_p.abs().max())
-        if not torch.allclose(ph_k, ph_p, rtol=1e-5, atol=1e-6 * ph_scale):
-            fail(f"fft_gather kernel disagrees at {n_boxes} boxes: max |d| "
-                 f"{float((ph_k - ph_p).abs().max()):.3e} of max {ph_scale:.3e}")
+        check_gather(f"{n_boxes} boxes", ph_k, ph_p)
+        # one order a point, whatever the grid: a second call gives the same bits
+        if not torch.equal(ops.fft_gather(pot, base, wx, wy), ph_k):
+            fail(f"fft_gather kernel is not bit-identical from call to call at {n_boxes} boxes")
         log(f"fft interp {n_boxes} boxes: spread plan {tuple(ops.spread_plan(n, nodes))}, "
-            f"bit-identical on a second call; gather max_abs_err "
-            f"{float((ph_k - ph_p).abs().max()):.3e} (max {ph_scale:.3e}; rtol 1e-5, "
-            "atol 1e-6 x max)")
+            f"gather CTAs {ops.gather_plan(n)}; both bit-identical on a "
+            "second call")
+        # boxes that overhang the lattice (the gather's checked path): the
+        # real weights, every 7th point's box moved one node past an edge
+        ob = base.clone()
+        ob[::7, 0] = -1
+        ob[3::7, 1] = nodes - 2
+        check_gather(f"{n_boxes} boxes, {int((ob != base).any(1).sum())} boxes overhanging",
+                     ops.fft_gather(pot, ob, wx, wy),
+                     fft_repulsion.gather_from_grid(pot, ob, wx, wy))
 
         # planted lattice-node points: one-hot weights, integer charges;
         # every partial sum is an exact integer, so both must be exact.
@@ -444,7 +525,8 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
                 device_ms_128=kernel_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes),
                                         "spread"))
 
-    # every lattice size, N = 5 000, at the same tolerance
+    # every lattice size, N = 5 000, at the same tolerance; the gather also
+    # at N = 1, 31 and 33 (a chunk's ragged tail)
     for n_boxes in range(1, fft_repulsion.MAX_N_BOXES + 1):
         ys = y[:5000]
         base, wx, wy, _ = fft_repulsion.interp_coords(ys, n_boxes)
@@ -452,7 +534,13 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
         nodes = fft_repulsion.lattice_nodes(n_boxes)
         check_spread(f"{n_boxes} boxes, N = 5 000", ops.fft_spread(base, wx, wy, charges, nodes),
                      fft_repulsion.spread_to_grid(base, wx, wy, charges, nodes), quiet=True)
-    log("fft_spread: n_boxes 1-128 at N = 5 000 within the tolerance")
+        pot = torch.randn((nodes, nodes, 4), generator=gen).to(dev)
+        for m in (5000, 1, 31, 33):
+            b, xw, yw = base[:m].contiguous(), wx[:m].contiguous(), wy[:m].contiguous()
+            check_gather(f"{n_boxes} boxes, N = {m}", ops.fft_gather(pot, b, xw, yw),
+                         fft_repulsion.gather_from_grid(pot, b, xw, yw), quiet=True)
+    log("fft_spread and fft_gather: n_boxes 1-128 at N = 5 000 (the gather also at "
+        "N = 1, 31, 33) within the tolerance")
 
     # a compressed lattice: one point 1e4 away squeezes the other N - 1
     # into the first band (and the first columns), the worst balance of
@@ -815,13 +903,16 @@ def phase_fft_breakdown(est) -> dict:
     out["spread_plan"] = list(ops.spread_plan(y.shape[0], nodes))
     out["spread_device_ms"] = kernel_ms(lambda: ops.fft_spread(base, wx, wy, charges, nodes),
                                         "spread")
+    out["gather_device_ms"] = kernel_ms(lambda: ops.fft_gather(pot, base, wx, wy), "gather")
     # the card's busy time over one whole descent step (gradient + update)
     by_kernel = add_busy_share(out, lambda: tsne_step(state, g, 1.0, 0.8, backend=backend,
                                                       lr=est.learning_rate_, min_gain=0.01),
                                inner=20)
-    # the spread kernel's device time in the profiled step, beside kernel_ms's
-    spread_us = [us for k, us in by_kernel.items() if "spread" in k]
-    out["spread_step_device_ms"] = sum(spread_us) * 1e-3 if spread_us else None
+    # the spread and gather kernels' device time in the profiled step,
+    # beside kernel_ms's
+    for name in ("spread", "gather"):
+        us = [v for k, v in by_kernel.items() if f"{name}_kernel" in k]
+        out[f"{name}_step_device_ms"] = sum(us) * 1e-3 if us else None
     log("fft step breakdown at the fitted embedding (s): " + json.dumps(out))
     return out
 
@@ -871,8 +962,8 @@ def main() -> None:
         path = "barnes_hut" if r["name"] in BH_KERNELS else "fft"
         r["path"] = path
         r["launches"] = (bh_launches if path == "barnes_hut" else fft_launches)[r["name"]]
-        if r["name"] == "fft_spread":
-            r["fitted_device_ms"] = fft_breakdown["spread_device_ms"]
+        if r["name"] in ("fft_spread", "fft_gather"):
+            r["fitted_device_ms"] = fft_breakdown[f"{r['name'][4:]}_device_ms"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Time edited variants of the port's CUDA kernels side by side on one GPU.
 
-    python3 chip_variants.py                       # every set
-    python3 chip_variants.py --sets spread         # one set
-    python3 chip_variants.py --sets spread --spread-baseline DIR
+    python3 chip_variants.py                            # every set
+    python3 chip_variants.py --sets bsp,gather          # some sets
+    python3 chip_variants.py --sets bsp,gather,spread --baseline DIR
+    python3 chip_variants.py --sets wrappers --src DIR  # another checkout's wrappers
 
 Each variant is a copy of ``src/repro_torch/csrc/<source>.cu`` with a few
 text replacements (a tile size, a rounding, a pipeline depth), built with
@@ -23,10 +24,31 @@ compressed lattice (one far outlier): each launch plan (bands of R rows x
 S slices x W warps, ``ops.spread_plan``'s numbers changed) and each
 scan-depth variant (SCAN) is checked against the plain spread at the
 chip_smoke.py tolerance and for a bit-identical second call, and timed on
-the device (torch.profiler, the kernel alone) and by CUDA events.  With
-``--spread-baseline DIR`` the spread.cu of another checkout (unpacked at
-DIR, e.g. the parent commit's, whose C entry takes no plan and adds into a
-zeroed grid) is timed on the same inputs, its zeroing separately.
+the device (torch.profiler, the kernel alone) and by CUDA events.
+
+``bsp`` runs each launch plan (G lanes a row x values a lane) of
+``bsp.cu`` and its ``expf`` variant (the bisection's exponentials as
+expf, not exp2f) on the main path's [70 000, 90] KNN distances, checked
+against the plain search at chip_smoke.py's tolerance, with the SASS
+instruction and MUFU counts of every instantiation (cuobjdump; the
+listings go to build/variants/), and at K = 3, 6, 12 and perplexity 1,
+1.5, 2 and K / 3 the rows whose beta leaves rtol 1e-5 of the plain search
+on the card, for the plain search on the CPU and each kernel.  ``gather`` runs ``gather.cu`` with its
+records staged through shared memory or not, 64, 128 or 256 threads, two
+points a thread, and (for the shipped build) grids of 2, 4 or 8 CTAs an
+SM or one a chunk, on the spread set's inputs with a random potential
+and on a copy at no 16-byte boundary: checked against the plain gather
+and for a bit-identical second call.  Both sets print registers, device
+ms and CUDA-event ms, two rounds.
+
+With ``--baseline DIR`` the spread.cu, bsp.cu and gather.cu of another
+checkout (unpacked at DIR, e.g. the parent commit's) are timed on the same
+inputs (the spread's zeroing separately); the gather set checks that the
+two gathers give the same bits, and times the other gather before and
+after each round.  ``wrappers`` times the six wrappers at the main path's
+shapes on random inputs (CUDA-event ms and the host's microseconds a
+call) and the pieces of a launch; ``--src DIR`` times another checkout's
+port instead (run parent, this, this, parent to compare).
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -35,6 +57,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -109,6 +132,26 @@ def build_variants(source: str, variants: dict, path: Path | None = None,
                 if "registers" in line]
         libs[name] = (ctypes.CDLL(str(OUT / f"{tag}-{name}.so")), regs)
     return libs
+
+
+def sass_counts(so: Path, dump: Path | None = None) -> dict:
+    """kernel function -> [SASS instructions, MUFU instructions] of a built
+    library (cuobjdump beside nvcc); ``dump`` keeps the whole listing."""
+    from repro_torch.kernels import build
+    out = subprocess.run([str(Path(build.nvcc()).with_name("cuobjdump")), "-sass", str(so)],
+                         capture_output=True, text=True, check=True).stdout
+    if dump is not None:
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        dump.write_text(out)
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            funcs[cur] = [0, 0]
+        elif cur and re.search(r"/\*[0-9a-f]{4}\*/", line):
+            funcs[cur][0] += 1
+            funcs[cur][1] += "MUFU" in line
+    return funcs
 
 
 def event_ms(fn, reps: int = 7, inner: int = 10) -> float:
@@ -231,11 +274,16 @@ SPREAD = {
 }
 
 
+_INPUTS: dict = {}
+
+
 def spread_inputs(x_np: np.ndarray) -> dict:
     """name -> (base, wx, wy, charges, nodes) on the card: the FFT fit's
     embedding (chip_smoke.py's fit, 48 boxes), a random one at 48 and 128
     boxes, the random one with one point moved 1e4 away (every other point
-    in the lattice's first band), and no points at all."""
+    in the lattice's first band), and no points at all.  Made once a run."""
+    if _INPUTS:
+        return _INPUTS
     from repro_torch.api import TSNE
     from repro_torch.core import fft_repulsion as fr
     n = x_np.shape[0]
@@ -255,7 +303,8 @@ def spread_inputs(x_np: np.ndarray) -> dict:
     out["empty_48"] = (torch.zeros((0, 2), dtype=torch.int32, device="cuda"),
                        *(torch.zeros((0, 3), device="cuda") for _ in range(3)),
                        fr.lattice_nodes(48))
-    return out
+    _INPUTS.update(out)
+    return _INPUTS
 
 
 def run_spread(x_np: np.ndarray, stream: int, baseline: Path | None) -> None:
@@ -336,14 +385,297 @@ def run_spread(x_np: np.ndarray, stream: int, baseline: Path | None) -> None:
             flush=True)
 
 
+# compile-time variants of csrc/bsp.cu; the launch plans (lanes a row,
+# values a lane) are run-time arguments
+BSP = {
+    "base": [],
+    # the bisection's exponentials as expf of d2n, as the final pass
+    "expf": [("  float x2[VALUES];                  // d2n log2(e): exp2f(-x2 beta) = exp(-d2n beta)\n"
+              "#pragma unroll\n"
+              "  for (int v = 0; v < VALUES; ++v) x2[v] = x[v] * 1.4426950408889634f;\n", ""),
+             ("const float p = exp2f(-x2[v] * beta);", "const float p = expf(-x[v] * beta);")],
+}
+BSP_TOL = dict(rtol=1e-5, atol=1e-7)   # chip_smoke.py's: cond_p; beta at rtol 1e-5
+
+
+def bsp_ok(p, b, p_ref, b_ref) -> bool:
+    return bool(torch.allclose(p, p_ref, **BSP_TOL) and torch.allclose(b, b_ref, rtol=1e-5))
+
+
+def run_bsp(x: torch.Tensor, stream: int, baseline: Path | None) -> None:
+    """The bsp kernel's plans and variants on the main path's [70 000, 90]
+    KNN distances, against the plain search."""
+    from repro_torch.core import bsp, knn
+    _, d2 = knn.knn(x, 90, 4096, 8192)
+    n, k = d2.shape
+    log_u = bsp.log_perplexity(30.0)
+    p_ref, b_ref = bsp.binary_search_perplexity_plain(d2, 30.0)
+    p, b = torch.empty_like(d2), torch.empty((n,), device="cuda")
+    libs = build_variants("bsp", BSP)
+    if baseline is not None:
+        libs["baseline"] = build_variants(
+            "bsp", {"baseline": []}, path=baseline / "src/repro_torch/csrc/bsp.cu",
+            tag="bsp-other")["baseline"]
+    for name in BSP:
+        print(json.dumps(dict(kernel="bsp", variant=name, sass=sass_counts(
+            OUT / f"bsp-{name}.so", OUT / f"bsp-{name}.sass"))), flush=True)
+    bsp_conditioning(libs, stream)
+    for rnd in range(2):
+        for name, (lib, regs) in libs.items():
+            f = lib.bsp_search
+            if name == "baseline":   # bsp_search(d2, cond_p, beta, n, k, log_u, tol, iters, stream)
+                f.argtypes = [P, P, P, I, I, ctypes.c_float, ctypes.c_float, I, P]
+                plans = [None]
+            else:
+                f.argtypes = [P, P, P, I, I, ctypes.c_float, ctypes.c_float, I, I, I, P]
+                plans = [(4, 24), (8, 12), (16, 6), (32, 3)]
+            for plan in plans:
+                extra = () if plan is None else plan
+
+                def call():
+                    err = f(d2.data_ptr(), p.data_ptr(), b.data_ptr(), n, k, log_u, 1e-5, 64,
+                            *extra, stream)
+                    if err:
+                        raise SystemExit(f"bsp {name} plan {plan}: error {err}")
+
+                call()
+                torch.cuda.synchronize()
+                dev = device_ms(call, "bsp", reps=10)
+                print(json.dumps(dict(
+                    kernel="bsp", variant=name, round=rnd, lanes=plan and plan[0],
+                    values=plan and plan[1], registers=regs, device_ms=dev["match"],
+                    recorded=dev["recorded"], ms=event_ms(call, reps=5, inner=5),
+                    max_abs_err=float((p - p_ref).abs().max()),
+                    beta_max_rel=float(((b - b_ref).abs() / b_ref.abs()).max()),
+                    within_tol=bsp_ok(p, b, p_ref, b_ref))), flush=True)
+
+
+def bsp_conditioning(libs: dict, stream: int) -> None:
+    """At small K and perplexity 1 or 2, fp32 cannot decide the bisection:
+    4 096 rows (all-equal and zero rows among them, as chip_smoke.py's
+    check) at each (K, perplexity), the rows whose beta differs from the
+    plain search on the card beyond rtol 1e-5, for the plain search on the
+    CPU and for each built kernel."""
+    from repro_torch.core import bsp
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(15)
+    for k in (3, 6, 12):
+        d2c = torch.randn((4096, k), generator=gen).abs() * 4.0
+        d2c[::97] = 2.5
+        d2c[1::97] = 0.0
+        d2 = d2c.cuda()
+        for perp in sorted({1.0, 1.5, 2.0, k / 3.0}):
+            _, b_ref = bsp.binary_search_perplexity_plain(d2, perp)
+            off = {"plain_cpu": bsp.binary_search_perplexity_plain(d2c, perp)[1].cuda()}
+            for name, (lib, _) in libs.items():
+                p, b = torch.empty_like(d2), torch.empty((4096,), device="cuda")
+                plan = () if name == "baseline" else tuple(ops.bsp_plan(k))
+                f = lib.bsp_search
+                f.argtypes = [P, P, P, I, I, ctypes.c_float, ctypes.c_float, I] + [I] * len(plan) + [P]
+                f(d2.data_ptr(), p.data_ptr(), b.data_ptr(), 4096, k, bsp.log_perplexity(perp),
+                  1e-5, 64, *plan, stream)
+                torch.cuda.synchronize()
+                off[name] = b
+            print(json.dumps(dict(kernel="bsp", conditioning=dict(k=k, perplexity=perp), rows_off={
+                name: int((~torch.isclose(b, b_ref, rtol=1e-5)).sum()) for name, b in off.items()})),
+                flush=True)
+
+
+# compile-time variants of csrc/gather.cu; CTAs an SM is a run-time plan
+GATHER = {
+    "base": [],
+    "staged": [("constexpr bool STAGE = false;", "constexpr bool STAGE = true;")],
+    "staged_threads256": [("constexpr bool STAGE = false;", "constexpr bool STAGE = true;"),
+                          ("constexpr int THREADS = 128;", "constexpr int THREADS = 256;")],
+    "threads256": [("constexpr int THREADS = 128;", "constexpr int THREADS = 256;")],
+    "threads64": [("constexpr int THREADS = 128;", "constexpr int THREADS = 64;")],
+    "pts2": [("constexpr int PTS = 1;", "constexpr int PTS = 2;")],
+}
+GATHER_TOL = 1e-5      # chip_smoke.py's: rtol 1e-5, atol 1e-6 x the largest value
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of t whose data starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def run_gather(x_np: np.ndarray, stream: int, baseline: Path | None) -> None:
+    """The gather kernel's variants and grids on the spread set's inputs
+    with a random potential, against the plain gather and, with a
+    baseline, bit for bit against the other checkout's kernel."""
+    from repro_torch.core import fft_repulsion as fr
+    inputs = {k: v[:3] + (v[4],) for k, v in spread_inputs(x_np).items()}
+    base, wx, wy, nodes = inputs["random_48"]
+    inputs["misaligned_48"] = (misaligned(base), misaligned(wx), misaligned(wy), nodes)
+    gen = torch.Generator().manual_seed(1)
+    pots = {nd: torch.randn((nd, nd, 4), generator=gen).cuda()
+            for nd in {v[3] for v in inputs.values()}}
+    refs = {k: fr.gather_from_grid(pots[v[3]], *v[:3]) for k, v in inputs.items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    libs = build_variants("gather", GATHER)
+    other = {}
+
+    def time_other_gather():
+        """The other checkout's kernel, fft_gather(pot, base, wx, wy, phi,
+        n, nodes, stream) with no plan, on every input."""
+        (lib, regs), = build_variants("gather", {"baseline": []},
+                                      path=baseline / "src/repro_torch/csrc/gather.cu",
+                                      tag="gather-other").values()
+        f = lib.fft_gather
+        f.argtypes = [P, P, P, P, P, I, I, P]
+        for what, (base, wx, wy, nodes) in inputs.items():
+            n = base.shape[0]
+            phi = torch.empty((n, 4), device="cuda")
+            call = lambda: f(pots[nodes].data_ptr(), base.data_ptr(), wx.data_ptr(),
+                             wy.data_ptr(), phi.data_ptr(), n, nodes, stream)
+            call()
+            torch.cuda.synchronize()
+            other[what] = phi.clone()
+            dev = device_ms(call, "gather") if n else {"match": None, "recorded": 0}
+            print(json.dumps(dict(kernel="gather", variant="baseline", input=what,
+                                  registers=regs, device_ms=dev["match"],
+                                  recorded=dev["recorded"], ms=event_ms(call, inner=20))),
+                  flush=True)
+
+    if baseline is not None:
+        time_other_gather()
+    for rnd in range(2):
+        for name, (lib, regs) in libs.items():
+            f = lib.fft_gather
+            f.argtypes = [P, P, P, P, P, I, I, I, P]
+            chunk = lib.fft_gather_chunk()
+            for what, (base, wx, wy, nodes) in inputs.items():
+                n = base.shape[0]
+                chunks = max(1, -(-n // chunk))
+                grids = sorted({min(chunks, c * sms) for c in (2, 4, 8)} | {chunks})
+                if name != "base" or what == "misaligned_48":
+                    grids = [grids[-1]]
+                phi = torch.empty((n, 4), device="cuda")
+                for ctas in grids:
+                    def call():
+                        err = f(pots[nodes].data_ptr(), base.data_ptr(), wx.data_ptr(),
+                                wy.data_ptr(), phi.data_ptr(), n, nodes, ctas, stream)
+                        if err:
+                            raise SystemExit(f"gather {name} {what} ctas {ctas}: error {err}")
+
+                    call()
+                    first = phi.clone()
+                    call()
+                    torch.cuda.synchronize()
+                    ref = refs[what]
+                    scale = float(ref.abs().max()) if n else 0.0
+                    dev = device_ms(call, "gather") if n else {"match": None, "recorded": 0}
+                    print(json.dumps(dict(
+                        kernel="gather", variant=name, round=rnd, input=what, chunk=chunk,
+                        ctas=ctas, registers=regs, device_ms=dev["match"],
+                        recorded=dev["recorded"], ms=event_ms(call, inner=20),
+                        max_abs_err=float((phi - ref).abs().max()) if n else 0.0,
+                        within_tol=bool(torch.allclose(phi, ref, rtol=GATHER_TOL,
+                                                       atol=0.1 * GATHER_TOL * scale)),
+                        bit_identical=bool(torch.equal(phi, first)),
+                        same_bits_as_baseline=bool(torch.equal(phi, other[what]))
+                        if what in other else None)), flush=True)
+        if baseline is not None:
+            time_other_gather()
+
+
+def enter_device(dev: torch.device) -> None:
+    with torch.cuda.device(dev):
+        pass
+
+
+def run_wrappers() -> None:
+    """Each of the six wrappers (the call the main path makes) at the main
+    path's shapes on random inputs: CUDA-event ms of back-to-back calls and
+    the host's microseconds a call (perf_counter over calls enqueued with
+    no sync), and the host cost of the launch's pieces.  Times the port on
+    sys.path: run it once with --src of another checkout to compare."""
+    import time
+    from repro_torch.core import fft_repulsion as fr
+    from repro_torch.core import morton
+    from repro_torch.kernels import build, ops
+    print(f"wrappers of {Path(ops.__file__).resolve().parents[1]}", flush=True)
+    build.build_all()
+    gen = torch.Generator().manual_seed(0)
+    n, dev = 70_000, torch.device("cuda", 0)
+    q = torch.randn((4096, 784), generator=gen).cuda()
+    c = torch.randn((8192, 784), generator=gen).cuda()
+    d2 = (torch.randn((n, 90), generator=gen).abs() * 4).cuda()
+    y = (torch.randn((n, 2), generator=gen) * 20).cuda()
+    cent, r_span = morton.span_radius(y)
+    cols = torch.randint(0, n, (n, 160), generator=gen, dtype=torch.int32).cuda()
+    vals = torch.rand((n, 160), generator=gen).cuda() / (n * 160)
+    p_len = torch.randint(0, 160, (n,), generator=gen, dtype=torch.int32).cuda()
+    base, wx, wy, _ = fr.interp_coords(y, 48)
+    charges = fr.point_charges(y)
+    nodes = fr.lattice_nodes(48)
+    pot = torch.randn((nodes, nodes, 4), generator=gen).cuda()
+    calls = {
+        "pairwise_sq_dists": lambda: ops.pairwise_sq_dists(q, c),
+        "bsp_search": lambda: ops.bsp_search(d2, 30.0),
+        "morton_encode": lambda: ops.morton_encode(y, cent, r_span),
+        "attractive_ell": lambda: ops.attractive_ell(y, cols, vals, p_len),
+        "fft_spread": lambda: ops.fft_spread(base, wx, wy, charges, nodes),
+        "fft_gather": lambda: ops.fft_gather(pot, base, wx, wy),
+    }
+    pieces = {
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "with torch.cuda.device(dev): pass": lambda: enter_device(dev),
+        "torch.empty((n, 4), device=dev)": lambda: torch.empty((n, 4), device=dev),
+        "tensor.data_ptr()": pot.data_ptr,
+        "tensor.device": lambda: pot.device,
+    }
+
+    def host_us(fn, calls_a_rep: int) -> float:
+        times = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls_a_rep):
+                fn()
+            times.append((time.perf_counter() - t0) / calls_a_rep * 1e6)
+            torch.cuda.synchronize()
+        return float(np.median(times))
+
+    if hasattr(ops, "gather_plan"):      # this tree's launch path, piece by piece
+        entry = ops._entry("gather")
+        phi = torch.empty((n, 4), device=dev)
+        args = (pot.data_ptr(), base.data_ptr(), wx.data_ptr(), wy.data_ptr(), phi.data_ptr(),
+                n, nodes, ops.gather_plan(n))
+        pieces.update({
+            "torch._C._cuda_getCurrentRawStream(0)": lambda: torch._C._cuda_getCurrentRawStream(0),
+            "ops.fft_gather_cuda (no input checks)": lambda: ops.fft_gather_cuda(pot, base, wx, wy),
+            "C entry, launch included": lambda: entry(*args, stream),
+            "C entry, n = 0 (ctypes alone)": lambda: entry(*args[:5], 0, nodes, 1, stream),
+        })
+        stream = torch._C._cuda_getCurrentRawStream(0)
+    for name, fn in pieces.items():
+        print(json.dumps(dict(piece=name, host_us=host_us(fn, 1000))), flush=True)
+    for name, fn in calls.items():
+        inner = 5 if name in ("pairwise_sq_dists", "bsp_search") else 100
+        print(json.dumps(dict(wrapper=name, ms=event_ms(fn, reps=21, inner=inner),
+                              host_us=host_us(fn, inner))), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--sets", default="pairwise,attractive,spread",
-                    help="comma-separated kernel sets (pairwise, attractive, spread)")
-    ap.add_argument("--spread-baseline", type=Path, default=None,
-                    help="root of another checkout whose spread.cu is timed beside")
+    ap.add_argument("--sets", default="pairwise,attractive,spread,bsp,gather,wrappers",
+                    help="comma-separated kernel sets (pairwise, attractive, spread, bsp, "
+                         "gather, wrappers)")
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="root of another checkout whose spread.cu, bsp.cu and gather.cu "
+                         "are timed beside")
+    ap.add_argument("--src", type=Path, default=None,
+                    help="root of another checkout whose port the wrappers set times")
     args = ap.parse_args()
     sets = args.sets.split(",")
+    if args.src is not None:
+        sys.path.insert(0, str(args.src.resolve() / "src"))
     if not torch.cuda.is_available():
         raise SystemExit("chip_variants: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -353,15 +685,23 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}", flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    if "wrappers" in sets:
+        run_wrappers()
+    if not set(sets) & {"pairwise", "attractive", "spread", "bsp", "gather"}:
+        return
     x_np = make_dataset("mnist")[0]
     x = torch.as_tensor(x_np).cuda()
-    stream = torch.cuda.current_stream().cuda_stream
     if "pairwise" in sets:
         run_pairwise(x, stream)
     if "attractive" in sets:
         run_attractive(x, stream)
+    if "bsp" in sets:
+        run_bsp(x, stream, args.baseline)
     if "spread" in sets:
-        run_spread(x_np, stream, args.spread_baseline)
+        run_spread(x_np, stream, args.baseline)
+    if "gather" in sets:
+        run_gather(x_np, stream, args.baseline)
 
 
 if __name__ == "__main__":

@@ -34,12 +34,13 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "pairwise": ("pairwise_sq_dists", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "bsp": ("bsp_search", [_P, _P, _P, _I, _I, _F, _F, _I, _P]),
+    "bsp": ("bsp_search", [_P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P]),
     "morton": ("morton_encode", [_P, _P, _P, _I, _I, _P]),
     "attractive": ("attractive_ell", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "spread": ("fft_spread", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P]),
-    "gather": ("fft_gather", [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "gather": ("fft_gather", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
+_ENTRIES: dict = {}   # source -> its C entry, argtypes and restype set
 
 
 def reset_launch_counts() -> None:
@@ -48,19 +49,31 @@ def reset_launch_counts() -> None:
 
 
 def _entry(source: str):
-    """The C entry point of ``csrc/<source>.cu`` with its argtypes set."""
-    symbol, argtypes = _SIGNATURES[source]
-    fn = getattr(build.load(source), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C entry point of ``csrc/<source>.cu``, bound once: loaded (and
+    built if needed) at its first call, its argtypes and restype set then."""
+    fn = _ENTRIES.get(source)
+    if fn is None:
+        symbol, argtypes = _SIGNATURES[source]
+        fn = getattr(build.load(source), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[source] = fn
     return fn
 
 
 def _launch(name: str, source: str, device: torch.device, *args) -> None:
     """Launch on ``device``'s current stream, with ``device`` current (the C
-    entry launches in the runtime's current device context)."""
-    with torch.cuda.device(device):
-        err = _entry(source)(*args, torch.cuda.current_stream(device).cuda_stream)
+    entry launches in the runtime's current device context; the context is
+    entered only when another device is current)."""
+    fn = _entry(source)
+    # the raw handle of the current stream (what torch.cuda.current_stream(
+    # device).cuda_stream gives, without building a Stream object)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
     LAUNCHES[name] += 1
@@ -126,7 +139,29 @@ def pairwise_sq_dists_cuda(q, db, q_sqn, db_sqn) -> torch.Tensor:
 # bsp_search
 # ---------------------------------------------------------------------------
 
-MAX_K = 1024   # one warp holds a row in registers: 32 lanes x 32 values
+MAX_K = 1024         # a row in registers: 32 lanes x 32 values at most
+BSP_VALUES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)   # values a lane csrc/bsp.cu is built for
+BSP_MAX_VALUES = 24  # values a lane holds at most, while fewer than 32 lanes do not
+
+
+class BspPlan(NamedTuple):
+    lanes: int    # G: lanes a row, a power of two; 32 / G rows a warp
+    values: int   # values a lane, one of BSP_VALUES: G x values just covers K
+
+
+def bsp_plan(k: int) -> BspPlan:
+    """The bsp kernel's launch plan for rows of K values: the fewest lanes a
+    row (so the per-row work of a pass is shared by the most rows) that
+    hold K with at most BSP_MAX_VALUES values a lane (registers), and 32
+    lanes past that; then the fewest values of BSP_VALUES that hold K.
+    Depends on K only, so every row of a call, and of any call at the same
+    K, takes the same arithmetic."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"K={k} must be in [1, {MAX_K}]")
+    lanes = 1
+    while lanes < 32 and -(-k // lanes) > BSP_MAX_VALUES:
+        lanes *= 2
+    return BspPlan(lanes, min(v for v in BSP_VALUES if lanes * v >= k))
 
 
 def bsp_search(d2: torch.Tensor, perplexity: float, iters: int = 64,
@@ -147,7 +182,7 @@ def bsp_search_cuda(d2, perplexity: float, iters: int = 64, tol: float = 1e-5):
     if n:
         _launch("bsp_search", "bsp", d2.device, d2.data_ptr(), cond_p.data_ptr(),
                 beta.data_ptr(), n, k, bsp.log_perplexity(perplexity), tol,
-                int(iters))
+                int(iters), *bsp_plan(k))
     return cond_p, beta
 
 
@@ -341,6 +376,19 @@ def fft_spread_cuda(base, wx, wy, charges, nodes: int) -> torch.Tensor:
     return grid
 
 
+# Points a chunk of csrc/gather.cu (its THREADS x PTS, which its
+# fft_gather_chunk() reports).
+GATHER_CHUNK = 128
+
+
+def gather_plan(n: int) -> int:
+    """CTAs of the gather kernel for n points: one a chunk (chunk c holds
+    the points [c CHUNK, (c + 1) CHUNK)).  The kernel lets CTA b walk the
+    chunks b, b + CTAs, ..., but fewer CTAs, each walking more chunks, were
+    slower on an H100 (PERF.md, PR 15)."""
+    return max(1, -(-n // GATHER_CHUNK))
+
+
 def fft_gather(pot: torch.Tensor, base: torch.Tensor, wx: torch.Tensor,
                wy: torch.Tensor) -> torch.Tensor:
     """Interpolate pot [nodes, nodes, 4] at the points: -> phi [N, 4] fp32.
@@ -364,10 +412,11 @@ def fft_gather_cuda(pot, base, wx, wy) -> torch.Tensor:
     n = base.shape[0]
     if pot.data_ptr() % 16:
         raise ValueError("pot must be 16-byte aligned (the kernel reads float4 taps)")
-    phi = torch.empty((n, 4), dtype=torch.float32, device=pot.device)
+    dev = pot.device
+    phi = torch.empty((n, 4), dtype=torch.float32, device=dev)
     if n:
-        _launch("fft_gather", "gather", pot.device, pot.data_ptr(), base.data_ptr(),
-                wx.data_ptr(), wy.data_ptr(), phi.data_ptr(), n, nodes)
+        _launch("fft_gather", "gather", dev, pot.data_ptr(), base.data_ptr(),
+                wx.data_ptr(), wy.data_ptr(), phi.data_ptr(), n, nodes, gather_plan(n))
     return phi
 
 
@@ -397,7 +446,7 @@ def kernel_registry() -> dict:
             source="src/repro_torch/csrc/bsp.cu",
             tpu="src/repro/kernels/bsp_kernel.py:_bsp_kernel",
             replaces="src/repro/kernels/bsp_kernel.py:33",
-            doc="§3.2: fused per-row perplexity bisection, one warp a row"),
+            doc="§3.2: fused per-row perplexity bisection, G lanes a row (bsp_plan)"),
         "morton_encode": dict(
             plain=morton.morton_encode, cuda=morton_encode_cuda,
             wrapper=morton_encode,
@@ -425,7 +474,7 @@ def kernel_registry() -> dict:
             source="src/repro_torch/csrc/gather.cu",
             tpu="src/repro/kernels/interp_kernel.py:_gather_kernel",
             replaces="src/repro/kernels/interp_kernel.py:76",
-            doc="FFT repulsion: 3x3 Lagrange gather, one thread a point, float4 taps"),
+            doc="FFT repulsion: 3x3 Lagrange gather, nine independent float4 taps a point"),
     }
 
 

@@ -5,6 +5,7 @@ runs for a CPU tensor) is held against the Pallas entry point on the same
 numpy inputs, over the parametrisations of ``tests/test_kernels.py``.
 The CUDA kernels themselves run only on a GPU (``chip_smoke.py``).
 """
+import ctypes
 from pathlib import Path
 
 import pytest
@@ -169,8 +170,9 @@ def test_ell_row_lengths_count_real_entries():
     assert similarity.ell_row_lengths(odd).tolist() == [2, 0, 1, 3]
 
 
-@pytest.mark.parametrize("n,k", [(1, 5), (65, 20), (500, 45), (1000, 90)])
-@pytest.mark.parametrize("perplexity", [8.0, 30.0])
+@pytest.mark.parametrize("n,k", [(1, 5), (65, 20), (500, 45), (1000, 90),
+                                 (7, 1), (40, 33), (20, 129)])
+@pytest.mark.parametrize("perplexity", [8.0, 30.0, 50.0])
 def test_bsp_matches_pallas(n, k, perplexity):
     k = min(k, int(3 * perplexity))
     rng = np.random.default_rng(n + k)
@@ -185,6 +187,25 @@ def test_bsp_matches_pallas(n, k, perplexity):
         np.testing.assert_allclose(bsp.perplexity_of(p).numpy(), perplexity, rtol=1e-2)
         np.testing.assert_allclose(bsp.perplexity_of(p).numpy(),
                                    np.asarray(jbsp.perplexity_of(p_ref)), rtol=1e-5)
+
+
+def test_bsp_plan_covers_every_k():
+    # G lanes a row (a power of two, 32 / G rows a warp) x values a lane
+    # just cover K, within the registers the kernel has (32 values)
+    for k in range(1, ops.MAX_K + 1):
+        lanes, values = ops.bsp_plan(k)
+        assert lanes in (1, 2, 4, 8, 16, 32) and 32 % lanes == 0
+        assert values in ops.BSP_VALUES and max(ops.BSP_VALUES) == 32
+        # the fewest values the kernel is built for that cover K
+        smaller = [v for v in ops.BSP_VALUES if v < values]
+        assert lanes * values >= k > lanes * max(smaller, default=0)
+        # the fewest lanes that keep a lane at BSP_MAX_VALUES values
+        assert values <= ops.BSP_MAX_VALUES or lanes == 32
+        assert lanes == 1 or -(-k // (lanes // 2)) > ops.BSP_MAX_VALUES
+    assert ops.bsp_plan(90) == (4, 24)
+    for k in (0, ops.MAX_K + 1):
+        with pytest.raises(ValueError, match="K="):
+            ops.bsp_plan(k)
 
 
 def test_bsp_chunked_matches_whole():
@@ -218,6 +239,47 @@ def test_registry_lists_the_six_ported_kernels():
         assert (ROOT / entry["source"]).is_file()
         assert entry["source"].startswith("src/repro_torch/csrc/")
         assert name in ops.LAUNCHES
+
+
+def test_each_c_entry_is_bound_once(monkeypatch):
+    # the library is loaded and argtypes / restype set at the first launch
+    # only; later launches reuse the bound function
+    loads = []
+
+    class Lib:
+        def __init__(self):
+            self.fft_gather = type("Fn", (), {})()
+
+    def load(name):
+        loads.append(name)
+        return Lib()
+
+    monkeypatch.setattr(ops.build, "load", load)
+    monkeypatch.setattr(ops, "_ENTRIES", {})
+    fn = ops._entry("gather")
+    assert ops._entry("gather") is fn and loads == ["gather"]
+    assert fn.argtypes == ops._SIGNATURES["gather"][1] and fn.restype is ctypes.c_int
+
+
+def test_launch_passes_the_current_stream_and_counts_each_launch(monkeypatch):
+    calls, errors = [], [0, 7]
+
+    def entry(*args):
+        calls.append(args)
+        return errors.pop(0)
+
+    monkeypatch.setattr(ops, "_ENTRIES", {"gather": entry})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index,
+                        raising=False)
+    ops.reset_launch_counts()
+    ops._launch("fft_gather", "gather", torch.device("cuda", 0), 1, 2)
+    assert calls == [(1, 2, 1000)] and ops.LAUNCHES["fft_gather"] == 1
+    # a refused launch raises and is not counted
+    with pytest.raises(RuntimeError, match="error 7"):
+        ops._launch("fft_gather", "gather", torch.device("cuda", 0), 3)
+    assert ops.LAUNCHES["fft_gather"] == 1
+    ops.reset_launch_counts()
 
 
 def test_cpu_tensor_takes_plain_path_and_counts_no_launch():
