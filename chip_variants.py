@@ -33,13 +33,11 @@ against the plain search at chip_smoke.py's tolerance, with the SASS
 instruction and MUFU counts of every instantiation (cuobjdump; the
 listings go to build/variants/), and at K = 3, 6, 12 and perplexity 1,
 1.5, 2 and K / 3 the rows whose beta leaves rtol 1e-5 of the plain search
-on the card, for the plain search on the CPU and each kernel.  ``gather`` runs ``gather.cu`` with its
-records staged through shared memory or not, 64, 128 or 256 threads, two
-points a thread, and (for the shipped build) grids of 2, 4 or 8 CTAs an
-SM or one a chunk, on the spread set's inputs with a random potential
-and on a copy at no 16-byte boundary: checked against the plain gather
-and for a bit-identical second call.  Both sets print registers, device
-ms and CUDA-event ms, two rounds.
+on the card, for the plain search on the CPU and each kernel.  ``gather``
+runs ``gather.cu`` with 64, 128 or 256 threads a CTA on the spread set's
+inputs with a random potential and on a copy at no 16-byte boundary:
+checked against the plain gather and for a bit-identical second call.
+Both sets print registers, device ms and CUDA-event ms, two rounds.
 
 With ``--baseline DIR`` the spread.cu, bsp.cu and gather.cu of another
 checkout (unpacked at DIR, e.g. the parent commit's) are timed on the same
@@ -481,15 +479,11 @@ def bsp_conditioning(libs: dict, stream: int) -> None:
                 flush=True)
 
 
-# compile-time variants of csrc/gather.cu; CTAs an SM is a run-time plan
+# variants of csrc/gather.cu
 GATHER = {
     "base": [],
-    "staged": [("constexpr bool STAGE = false;", "constexpr bool STAGE = true;")],
-    "staged_threads256": [("constexpr bool STAGE = false;", "constexpr bool STAGE = true;"),
-                          ("constexpr int THREADS = 128;", "constexpr int THREADS = 256;")],
     "threads256": [("constexpr int THREADS = 128;", "constexpr int THREADS = 256;")],
     "threads64": [("constexpr int THREADS = 128;", "constexpr int THREADS = 64;")],
-    "pts2": [("constexpr int PTS = 1;", "constexpr int PTS = 2;")],
 }
 GATHER_TOL = 1e-5      # chip_smoke.py's: rtol 1e-5, atol 1e-6 x the largest value
 
@@ -503,9 +497,9 @@ def misaligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def run_gather(x_np: np.ndarray, stream: int, baseline: Path | None) -> None:
-    """The gather kernel's variants and grids on the spread set's inputs
-    with a random potential, against the plain gather and, with a
-    baseline, bit for bit against the other checkout's kernel."""
+    """The gather kernel's variants on the spread set's inputs with a
+    random potential, against the plain gather and, with a baseline, bit
+    for bit against the other checkout's kernel."""
     from repro_torch.core import fft_repulsion as fr
     inputs = {k: v[:3] + (v[4],) for k, v in spread_inputs(x_np).items()}
     base, wx, wy, nodes = inputs["random_48"]
@@ -514,72 +508,53 @@ def run_gather(x_np: np.ndarray, stream: int, baseline: Path | None) -> None:
     pots = {nd: torch.randn((nd, nd, 4), generator=gen).cuda()
             for nd in {v[3] for v in inputs.values()}}
     refs = {k: fr.gather_from_grid(pots[v[3]], *v[:3]) for k, v in inputs.items()}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     libs = build_variants("gather", GATHER)
     other = {}
 
-    def time_other_gather():
-        """The other checkout's kernel, fft_gather(pot, base, wx, wy, phi,
-        n, nodes, stream) with no plan, on every input."""
-        (lib, regs), = build_variants("gather", {"baseline": []},
-                                      path=baseline / "src/repro_torch/csrc/gather.cu",
-                                      tag="gather-other").values()
+    def run(lib, regs, variant, rnd=None, baseline_run=False):
+        """fft_gather(pot, base, wx, wy, phi, n, nodes, stream) of one
+        build on every input, checked and timed."""
         f = lib.fft_gather
         f.argtypes = [P, P, P, P, P, I, I, P]
         for what, (base, wx, wy, nodes) in inputs.items():
             n = base.shape[0]
             phi = torch.empty((n, 4), device="cuda")
-            call = lambda: f(pots[nodes].data_ptr(), base.data_ptr(), wx.data_ptr(),
-                             wy.data_ptr(), phi.data_ptr(), n, nodes, stream)
+
+            def call():
+                err = f(pots[nodes].data_ptr(), base.data_ptr(), wx.data_ptr(),
+                        wy.data_ptr(), phi.data_ptr(), n, nodes, stream)
+                if err:
+                    raise SystemExit(f"gather {variant} {what}: error {err}")
+
+            call()
+            first = phi.clone()
             call()
             torch.cuda.synchronize()
-            other[what] = phi.clone()
+            if baseline_run:
+                other[what] = phi.clone()
+            ref = refs[what]
+            scale = float(ref.abs().max()) if n else 0.0
             dev = device_ms(call, "gather") if n else {"match": None, "recorded": 0}
-            print(json.dumps(dict(kernel="gather", variant="baseline", input=what,
-                                  registers=regs, device_ms=dev["match"],
-                                  recorded=dev["recorded"], ms=event_ms(call, inner=20))),
-                  flush=True)
+            print(json.dumps(dict(
+                kernel="gather", variant=variant, round=rnd, input=what, registers=regs,
+                device_ms=dev["match"], recorded=dev["recorded"], ms=event_ms(call, inner=20),
+                max_abs_err=float((phi - ref).abs().max()) if n else 0.0,
+                within_tol=bool(torch.allclose(phi, ref, rtol=GATHER_TOL,
+                                               atol=0.1 * GATHER_TOL * scale)),
+                bit_identical=bool(torch.equal(phi, first)),
+                same_bits_as_baseline=bool(torch.equal(phi, other[what]))
+                if what in other and not baseline_run else None)), flush=True)
 
-    if baseline is not None:
-        time_other_gather()
+    if baseline is not None:   # the other checkout's kernel before and after each round
+        (other_lib, other_regs), = build_variants(
+            "gather", {"baseline": []}, path=baseline / "src/repro_torch/csrc/gather.cu",
+            tag="gather-other").values()
+        run(other_lib, other_regs, "baseline", baseline_run=True)
     for rnd in range(2):
         for name, (lib, regs) in libs.items():
-            f = lib.fft_gather
-            f.argtypes = [P, P, P, P, P, I, I, I, P]
-            chunk = lib.fft_gather_chunk()
-            for what, (base, wx, wy, nodes) in inputs.items():
-                n = base.shape[0]
-                chunks = max(1, -(-n // chunk))
-                grids = sorted({min(chunks, c * sms) for c in (2, 4, 8)} | {chunks})
-                if name != "base" or what == "misaligned_48":
-                    grids = [grids[-1]]
-                phi = torch.empty((n, 4), device="cuda")
-                for ctas in grids:
-                    def call():
-                        err = f(pots[nodes].data_ptr(), base.data_ptr(), wx.data_ptr(),
-                                wy.data_ptr(), phi.data_ptr(), n, nodes, ctas, stream)
-                        if err:
-                            raise SystemExit(f"gather {name} {what} ctas {ctas}: error {err}")
-
-                    call()
-                    first = phi.clone()
-                    call()
-                    torch.cuda.synchronize()
-                    ref = refs[what]
-                    scale = float(ref.abs().max()) if n else 0.0
-                    dev = device_ms(call, "gather") if n else {"match": None, "recorded": 0}
-                    print(json.dumps(dict(
-                        kernel="gather", variant=name, round=rnd, input=what, chunk=chunk,
-                        ctas=ctas, registers=regs, device_ms=dev["match"],
-                        recorded=dev["recorded"], ms=event_ms(call, inner=20),
-                        max_abs_err=float((phi - ref).abs().max()) if n else 0.0,
-                        within_tol=bool(torch.allclose(phi, ref, rtol=GATHER_TOL,
-                                                       atol=0.1 * GATHER_TOL * scale)),
-                        bit_identical=bool(torch.equal(phi, first)),
-                        same_bits_as_baseline=bool(torch.equal(phi, other[what]))
-                        if what in other else None)), flush=True)
+            run(lib, regs, name, rnd)
         if baseline is not None:
-            time_other_gather()
+            run(other_lib, other_regs, "baseline", baseline_run=True)
 
 
 def enter_device(dev: torch.device) -> None:
@@ -642,16 +617,16 @@ def run_wrappers() -> None:
             torch.cuda.synchronize()
         return float(np.median(times))
 
-    if hasattr(ops, "gather_plan"):      # this tree's launch path, piece by piece
+    if hasattr(ops, "_ENTRIES"):      # a launch path that binds each C entry once
         entry = ops._entry("gather")
         phi = torch.empty((n, 4), device=dev)
         args = (pot.data_ptr(), base.data_ptr(), wx.data_ptr(), wy.data_ptr(), phi.data_ptr(),
-                n, nodes, ops.gather_plan(n))
+                n, nodes)
         pieces.update({
             "torch._C._cuda_getCurrentRawStream(0)": lambda: torch._C._cuda_getCurrentRawStream(0),
             "ops.fft_gather_cuda (no input checks)": lambda: ops.fft_gather_cuda(pot, base, wx, wy),
             "C entry, launch included": lambda: entry(*args, stream),
-            "C entry, n = 0 (ctypes alone)": lambda: entry(*args[:5], 0, nodes, 1, stream),
+            "C entry, n = 0 (ctypes alone)": lambda: entry(*args[:5], 0, nodes, stream),
         })
         stream = torch._C._cuda_getCurrentRawStream(0)
     for name, fn in pieces.items():

@@ -16,67 +16,24 @@
 // sectors a point, ~13 MB of L2 reads for 70 000 points, and they depend
 // on the point's record: two round trips in series.
 //
-// Design: the points are cut into chunks of CHUNK = THREADS x PTS, and a
-// CTA walks the chunks blockIdx.x, + gridDim.x, ... (ops.gather_plan sets
-// the grid: one CTA a chunk; chip_variants.py times smaller grids).  A thread
-// loads its point's record (base, wx, wy) and, if its 3x3 box lies on the
-// lattice (interp_coords makes no other), issues the nine float4 taps as
+// Design: one thread a point, 128-thread CTAs.  A thread loads its point's
+// record (base, wx, wy) and, if its 3x3 box lies on the lattice
+// (interp_coords makes no other), issues the nine float4 taps as
 // independent non-coherent loads with no branch between them; a box that
 // overhangs takes the checked path, which skips taps off the lattice.
-// One float4 store a point.  No atomics, deterministic.  STAGE (off; on in
-// chip_variants.py's gather set) copies a chunk's records, three
-// contiguous spans, into shared memory by 16-byte cp.async (4-byte copies
-// for a span at no 16-byte boundary and for a ragged tail),
-// double-buffered across a CTA's chunks: slower at the main path's size,
-// where a CTA has one chunk (PERF.md, PR 15).
+// One float4 store a point.  No atomics, deterministic.
 // The products wx * wy and w * pot and the sum over the 9 taps in (a, b)
 // order use __fmul_rn / __fadd_rn, so nvcc cannot contract them into FMAs
 // that would round differently from the plain version's multiply-then-sum;
 // both paths sum in the same order, so the result does not depend on the
-// path, the chunking or the grid.
+// path.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int P = 3;            // Lagrange nodes per box per dim
-constexpr int THREADS = 128;    // threads a CTA
-constexpr int PTS = 1;          // points a thread a chunk
-constexpr bool STAGE = false;   // records through shared memory by cp.async
-constexpr int CHUNK = THREADS * PTS;
-constexpr int REC = 8;          // words of a point's record: base 2, wx 3, wy 3
-static_assert(CHUNK % 4 == 0, "the spans of a chunk start at 16-byte boundaries");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// words 4-byte words from src into dst, by the whole block; 16-byte copies
-// if src is 16-byte aligned (dst always is), 4-byte copies for the rest
-__device__ __forceinline__ void stage_span(float* dst, const float* src, int words,
-                                           bool vec) {
-  int done = 0;
-  if (vec) {
-    const int quads = words >> 2;
-    for (int q = threadIdx.x; q < quads; q += THREADS) cp_async16(dst + 4 * q, src + 4 * q);
-    done = quads << 2;
-  }
-  for (int w = done + threadIdx.x; w < words; w += THREADS) cp_async4(dst + w, src + w);
-}
+constexpr int THREADS = 128;    // threads a CTA, one a point
 
 __device__ __forceinline__ void add_tap(float4& acc, float4 v, float w) {
   acc.x = __fadd_rn(acc.x, __fmul_rn(v.x, w));
@@ -85,9 +42,20 @@ __device__ __forceinline__ void add_tap(float4& acc, float4 v, float w) {
   acc.w = __fadd_rn(acc.w, __fmul_rn(v.w, w));
 }
 
-__device__ __forceinline__ float4 gather_point(const float4* __restrict__ pot, int nodes,
-                                               int bx, int by, const float* wxi,
-                                               const float* wyi) {
+__global__ void __launch_bounds__(THREADS)
+gather_kernel(const float4* __restrict__ pot, const int32_t* __restrict__ base,
+              const float* __restrict__ wx, const float* __restrict__ wy,
+              float4* __restrict__ phi, int n, int nodes) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int bx = base[2 * (size_t)i];
+  const int by = base[2 * (size_t)i + 1];
+  float wxi[P], wyi[P];
+#pragma unroll
+  for (int a = 0; a < P; ++a) {
+    wxi[a] = wx[P * (size_t)i + a];
+    wyi[a] = wy[P * (size_t)i + a];
+  }
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (bx >= 0 && by >= 0 && bx + P <= nodes && by + P <= nodes) {
     const float4* box = pot + (size_t)bx * nodes + by;
@@ -100,96 +68,35 @@ __device__ __forceinline__ float4 gather_point(const float4* __restrict__ pot, i
     for (int a = 0; a < P; ++a)
 #pragma unroll
       for (int b = 0; b < P; ++b) add_tap(acc, v[P * a + b], __fmul_rn(wxi[a], wyi[b]));
-    return acc;
-  }
-#pragma unroll
-  for (int a = 0; a < P; ++a) {
-    const int gx = bx + a;
-    if (gx < 0 || gx >= nodes) continue;
-#pragma unroll
-    for (int b = 0; b < P; ++b) {
-      const int gy = by + b;
-      if (gy < 0 || gy >= nodes) continue;
-      add_tap(acc, __ldg(pot + (size_t)gx * nodes + gy), __fmul_rn(wxi[a], wyi[b]));
-    }
-  }
-  return acc;
-}
-
-__global__ void __launch_bounds__(THREADS)
-gather_kernel(const float4* __restrict__ pot, const int32_t* __restrict__ base,
-              const float* __restrict__ wx, const float* __restrict__ wy,
-              float4* __restrict__ phi, int n, int nodes, bool vec) {
-  const int chunks = (n + CHUNK - 1) / CHUNK;
-  if ((int)blockIdx.x >= chunks) return;   // block-uniform
-  if constexpr (STAGE) {
-    // per buffer: base [CHUNK][2] int32, wx [CHUNK][3], wy [CHUNK][3]
-    __shared__ __align__(16) float rec[2][REC * CHUNK];
-    auto issue = [&](int c, int buf) {
-      const int p0 = c * CHUNK, m = min(CHUNK, n - p0);
-      float* s = rec[buf];
-      stage_span(s, reinterpret_cast<const float*>(base) + 2 * (size_t)p0, 2 * m, vec);
-      stage_span(s + 2 * CHUNK, wx + 3 * (size_t)p0, 3 * m, vec);
-      stage_span(s + 5 * CHUNK, wy + 3 * (size_t)p0, 3 * m, vec);
-    };
-    int c = blockIdx.x;
-    issue(c, 0);
-    cp_async_commit();
-    for (int buf = 0; c < chunks; c += gridDim.x, buf ^= 1) {
-      if (c + (int)gridDim.x < chunks) issue(c + gridDim.x, buf ^ 1);
-      cp_async_commit();             // possibly empty: keeps the group count
-      cp_async_wait_all_but_one();   // this chunk's records have landed
-      __syncthreads();
-      const float* s = rec[buf];
-      const int32_t* sb = reinterpret_cast<const int32_t*>(s);
-#pragma unroll
-      for (int t = 0; t < PTS; ++t) {
-        const int l = threadIdx.x + t * THREADS;
-        const int i = c * CHUNK + l;
-        if (i < n)
-          phi[i] = gather_point(pot, nodes, sb[2 * l], sb[2 * l + 1], s + 2 * CHUNK + 3 * l,
-                                s + 5 * CHUNK + 3 * l);
-      }
-      __syncthreads();               // buf is refilled two chunks on
-    }
   } else {
-    for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
 #pragma unroll
-      for (int t = 0; t < PTS; ++t) {
-        const int i = c * CHUNK + threadIdx.x + t * THREADS;
-        if (i >= n) continue;
-        float wxi[P], wyi[P];
+    for (int a = 0; a < P; ++a) {
+      const int gx = bx + a;
+      if (gx < 0 || gx >= nodes) continue;
 #pragma unroll
-        for (int a = 0; a < P; ++a) {
-          wxi[a] = wx[P * (size_t)i + a];
-          wyi[a] = wy[P * (size_t)i + a];
-        }
-        phi[i] = gather_point(pot, nodes, base[2 * (size_t)i], base[2 * (size_t)i + 1],
-                              wxi, wyi);
+      for (int b = 0; b < P; ++b) {
+        const int gy = by + b;
+        if (gy < 0 || gy >= nodes) continue;
+        add_tap(acc, __ldg(pot + (size_t)gx * nodes + gy), __fmul_rn(wxi[a], wyi[b]));
       }
     }
   }
+  phi[i] = acc;
 }
 
 }  // namespace
 
-// Points a chunk of the launch plan (ops.gather_plan mirrors it).
-extern "C" int fft_gather_chunk() { return CHUNK; }
-
 // pot [nodes, nodes, 4] fp32, base [n, 2] int32, wx / wy [n, 3] fp32 ->
 // phi [n, 4] fp32; all row-major, pot and phi 16-byte aligned, base, wx
-// and wy 4-byte aligned.  ctas >= 1 CTAs walk the ceil(n / CHUNK) chunks.
-// Returns a cudaError_t (0 on success).
+// and wy 4-byte aligned.  Returns a cudaError_t (0 on success).
 extern "C" int fft_gather(const float* pot, const int32_t* base, const float* wx,
-                          const float* wy, float* phi, int n, int nodes, int ctas,
-                          void* stream) {
+                          const float* wy, float* phi, int n, int nodes, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (nodes <= 0 || ctas <= 0 || (uintptr_t)pot % 16 || (uintptr_t)phi % 16 ||
+  if (nodes <= 0 || (uintptr_t)pot % 16 || (uintptr_t)phi % 16 ||
       ((uintptr_t)base | (uintptr_t)wx | (uintptr_t)wy) % 4)
     return (int)cudaErrorInvalidValue;
-  const bool vec = ((uintptr_t)base | (uintptr_t)wx | (uintptr_t)wy) % 16 == 0;
-  gather_kernel<<<ctas, THREADS, 0, (cudaStream_t)stream>>>(
+  gather_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(pot), base, wx, wy,
-      reinterpret_cast<float4*>(phi), n, nodes, vec);
+      reinterpret_cast<float4*>(phi), n, nodes);
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,7 @@ _SIGNATURES = {
     "morton": ("morton_encode", [_P, _P, _P, _I, _I, _P]),
     "attractive": ("attractive_ell", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "spread": ("fft_spread", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P]),
-    "gather": ("fft_gather", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "gather": ("fft_gather", [_P, _P, _P, _P, _P, _I, _I, _P]),
 }
 _ENTRIES: dict = {}   # source -> its C entry, argtypes and restype set
 
@@ -376,19 +376,6 @@ def fft_spread_cuda(base, wx, wy, charges, nodes: int) -> torch.Tensor:
     return grid
 
 
-# Points a chunk of csrc/gather.cu (its THREADS x PTS, which its
-# fft_gather_chunk() reports).
-GATHER_CHUNK = 128
-
-
-def gather_plan(n: int) -> int:
-    """CTAs of the gather kernel for n points: one a chunk (chunk c holds
-    the points [c CHUNK, (c + 1) CHUNK)).  The kernel lets CTA b walk the
-    chunks b, b + CTAs, ..., but fewer CTAs, each walking more chunks, were
-    slower on an H100 (PERF.md, PR 15)."""
-    return max(1, -(-n // GATHER_CHUNK))
-
-
 def fft_gather(pot: torch.Tensor, base: torch.Tensor, wx: torch.Tensor,
                wy: torch.Tensor) -> torch.Tensor:
     """Interpolate pot [nodes, nodes, 4] at the points: -> phi [N, 4] fp32.
@@ -416,7 +403,7 @@ def fft_gather_cuda(pot, base, wx, wy) -> torch.Tensor:
     phi = torch.empty((n, 4), dtype=torch.float32, device=dev)
     if n:
         _launch("fft_gather", "gather", dev, pot.data_ptr(), base.data_ptr(),
-                wx.data_ptr(), wy.data_ptr(), phi.data_ptr(), n, nodes, gather_plan(n))
+                wx.data_ptr(), wy.data_ptr(), phi.data_ptr(), n, nodes)
     return phi
 
 

@@ -104,7 +104,9 @@ def _interp_case(n, n_boxes):
     return nodes, base.numpy(), wx.numpy(), wy.numpy(), charges, pot
 
 
-@pytest.mark.parametrize("n,n_boxes", [(50, 16), (700, 48), (1500, 64), (1, 16), (259, 48)])
+# N = 127, 128, 129: either side of a CTA of the CUDA gather (128 points)
+@pytest.mark.parametrize("n,n_boxes", [(50, 16), (700, 48), (1500, 64), (1, 16), (259, 48),
+                                       (127, 16), (128, 16), (129, 48)])
 def test_interp_matches_jax_oracle_and_pallas(n, n_boxes):
     nodes, base, wx, wy, charges, pot = _interp_case(n, n_boxes)
     g = ops.fft_spread(T(base), T(wx), T(wy), T(charges), nodes).numpy()
@@ -164,6 +166,20 @@ def test_interp_skips_off_lattice_taps(n_ch):
     np.testing.assert_allclose(out, grid, rtol=1e-5, atol=1e-5)
     ph = ops.fft_gather(T(pot), T(base), T(wx), T(wy)).numpy()
     np.testing.assert_allclose(ph, phi, rtol=1e-5, atol=1e-5)
+
+
+def test_gather_cuda_rejects_a_misaligned_potential():
+    # the kernel reads a tap as one float4: a potential at no 16-byte
+    # boundary is refused before anything is launched
+    nodes, base, wx, wy, _charges, pot = _interp_case(50, 16)
+    flat = torch.zeros(pot.size + 1)
+    shifted = flat[1:].view(pot.shape)
+    shifted.copy_(T(pot))
+    assert shifted.data_ptr() % 16
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.fft_gather_cuda(shifted, T(base), T(wx), T(wy))
+    assert ops.LAUNCHES["fft_gather"] == 0
 
 
 # -------------------------------------------------------------- fft_repulsion --
@@ -285,23 +301,6 @@ def test_spread_plan_covers_the_lattice(n):
         assert plan.smem_bytes <= ops.SMEM_LIMIT == 227 * 1024
         # a slice gives every warp some points; one slice for few points
         assert plan.slices == 1 or n >= (plan.slices - 1) * ops.SPREAD_POINTS_A_WARP * plan.warps
-
-
-@pytest.mark.parametrize("n", [1, ops.GATHER_CHUNK - 1, ops.GATHER_CHUNK,
-                               ops.GATHER_CHUNK + 1, 5000, 70_000, 1_000_003])
-def test_gather_plan_visits_every_point_once(n):
-    # CTA b walks the chunks b, b + ctas, ...; chunk c holds the points
-    # [c CHUNK, (c + 1) CHUNK) below n: the plan's grid (one CTA a chunk)
-    # and the smaller grids chip_variants.py times
-    chunk = ops.GATHER_CHUNK
-    chunks = -(-n // chunk)
-    assert ops.gather_plan(n) == chunks
-    for ctas in {ops.gather_plan(n), 264, 528, 1}:
-        seen = np.zeros(n, np.int64)
-        for b in range(min(ctas, chunks)):
-            for c in range(b, chunks, ctas):
-                seen[c * chunk:min((c + 1) * chunk, n)] += 1
-        assert (seen == 1).all()
 
 
 def test_spread_plan_fills_the_h100_at_the_main_path():

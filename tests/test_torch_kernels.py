@@ -6,6 +6,7 @@ numpy inputs, over the parametrisations of ``tests/test_kernels.py``.
 The CUDA kernels themselves run only on a GPU (``chip_smoke.py``).
 """
 import ctypes
+import re
 from pathlib import Path
 
 import pytest
@@ -259,6 +260,25 @@ def test_each_c_entry_is_bound_once(monkeypatch):
     fn = ops._entry("gather")
     assert ops._entry("gather") is fn and loads == ["gather"]
     assert fn.argtypes == ops._SIGNATURES["gather"][1] and fn.restype is ctypes.c_int
+
+
+_C_TYPES = {"const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+            "const int32_t*": ctypes.c_void_p, "int64_t*": ctypes.c_void_p,
+            "void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong}
+
+
+@pytest.mark.parametrize("source", sorted(ops._SIGNATURES))
+def test_signature_matches_the_c_entry(source):
+    # the argtypes bound once in ops._SIGNATURES are those of the C entry's
+    # declaration in csrc/<source>.cu, in order, ending with the stream
+    symbol, argtypes = ops._SIGNATURES[source]
+    text = (ROOT / "src/repro_torch/csrc" / f"{source}.cu").read_text()
+    decl = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text)
+    assert decl is not None
+    params = [" ".join(p.split()) for p in decl.group(1).split(",")]
+    assert [_C_TYPES[p.rsplit(" ", 1)[0]] for p in params] == argtypes
+    assert params[-1] == "void* stream"
 
 
 def test_launch_passes_the_current_stream_and_counts_each_launch(monkeypatch):
