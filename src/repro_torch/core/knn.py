@@ -7,6 +7,13 @@ twin on the CPU), and the top-k is a streaming ``torch.topk`` merge over
 the database chunks, as the reference merges with ``lax.top_k`` outside
 its Pallas kernel.  Exact, not approximate.
 
+Ties are broken as ``lax.top_k`` breaks them: among equal distances the
+lower database index wins.  ``torch.topk`` gives no order among ties, so
+the merge ranks 64-bit keys, the distance's float bits above the column
+index: a distance is >= 0 (the tile clamps at 0; the bits are clamped at
+0 too, which turns a -0.0 into +0.0), so its bits as an integer order as
+the floats do, and equal distances order by index.
+
 Unlike the reference, ``x`` is not padded to block multiples: the last
 query block and the last database chunk are simply shorter (the kernel
 masks ragged edges), so only the diagonal needs masking.
@@ -17,13 +24,14 @@ import torch
 
 from repro_torch.kernels import ops
 
+_LOW = 0xFFFFFFFF   # the key's low 32 bits: the column index
+
 
 def knn(x: torch.Tensor, k: int, block_q: int = 512, block_db: int = 2048):
     """Exact KNN of the rows of ``x`` among themselves, self excluded.
 
     Returns (idx [N, k] int32, d2 [N, k]) on ``x``'s device, each row
-    ascending by distance.  Ties may be broken differently from JAX's
-    ``lax.top_k``.
+    ascending by distance, equal distances by index (as ``lax.top_k``).
     """
     n = x.shape[0]
     if k >= n:
@@ -31,23 +39,31 @@ def knn(x: torch.Tensor, k: int, block_q: int = 512, block_db: int = 2048):
     x = x.contiguous()
     sqn = torch.sum(x * x, dim=1)
     big = torch.finfo(x.dtype).max
-    out_d, out_i = [], []
+    out = []
     for q0 in range(0, n, block_q):
         q1 = min(q0 + block_q, n)
         q_idx = torch.arange(q0, q1, device=x.device)
-        best_d = torch.full((q1 - q0, k), big, dtype=x.dtype, device=x.device)
-        best_i = torch.full((q1 - q0, k), -1, dtype=torch.int64, device=x.device)
+        # (big, index n): never kept, since every row has n - 1 >= k real columns
+        best = torch.full((q1 - q0, k), (_float_bits(big) << 32) | n, dtype=torch.int64,
+                          device=x.device)
         for c0 in range(0, n, block_db):
             c1 = min(c0 + block_db, n)
             col = torch.arange(c0, c1, device=x.device)
             d2 = ops.pairwise_sq_dists(x[q0:q1], x[c0:c1], sqn[q0:q1], sqn[c0:c1])
             if c0 < q1 and q0 < c1:      # this chunk holds some query rows
                 d2 = d2.masked_fill(col[None, :] == q_idx[:, None], big)
-            cat_d = torch.cat([best_d, d2], dim=1)
-            cat_i = torch.cat([best_i, col.expand(q1 - q0, -1)], dim=1)
-            best_d, arg = torch.topk(cat_d, k, dim=1, largest=False, sorted=True)
-            best_i = torch.gather(cat_i, 1, arg)
-        out_d.append(best_d)
-        out_i.append(best_i)
-    d2 = torch.clamp_min(torch.cat(out_d, dim=0), 0.0)
-    return torch.cat(out_i, dim=0).to(torch.int32), d2
+            # clamping the bits at 0 maps -0.0 (and any negative) to +0.0
+            keys = torch.clamp_min(d2.view(torch.int32), 0).to(torch.int64)
+            keys <<= 32
+            keys |= col
+            best = torch.topk(torch.cat([best, keys], dim=1), k, dim=1, largest=False,
+                              sorted=True).values
+        out.append(best)
+    keys = torch.cat(out, dim=0)
+    d2 = (keys >> 32).to(torch.int32).view(torch.float32)
+    return (keys & _LOW).to(torch.int32), d2
+
+
+def _float_bits(v: float) -> int:
+    """The bits of fp32 ``v`` as a Python int."""
+    return int(torch.tensor(v, dtype=torch.float32).view(torch.int32))

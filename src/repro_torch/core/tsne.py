@@ -13,8 +13,8 @@ On a CUDA device the KNN tile, the perplexity search, the Morton codes,
 the attractive forces and the FFT backend's spread and gather go through
 the hand-written kernels of ``repro_torch.kernels``; on the CPU through
 their plain twins.  The config keeps ``use_pallas`` / ``bsp_impl`` /
-``attractive_impl`` so that a JAX config carries across, but none of them
-routes around a kernel.
+``fft_interp_impl`` / ``attractive_impl`` so that a JAX config carries
+across, but none of them routes around a kernel.
 """
 from __future__ import annotations
 
@@ -38,7 +38,8 @@ DEFAULT_ATTRACTIVE_IMPL = "blocked"
 # kernel holds a row of up to 1024 values in one warp's registers).
 MAX_N_NEIGHBORS = 1024
 
-BSP_IMPLS = ("auto", "xla", "pallas")
+# the reference's dispatch flags bsp_impl and fft_interp_impl take these
+IMPLS = ("auto", "xla", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +70,7 @@ class TsneConfig:
     # flags, picks kernel or plain version
     use_pallas: bool = False
     bsp_impl: str = "auto"
+    fft_interp_impl: str = "auto"
     # 'ell' | 'components' | 'blocked' all name the one ELL attractive
     # kernel; 'edges' uses the directed edge list
     attractive_impl: str = DEFAULT_ATTRACTIVE_IMPL
@@ -80,9 +82,10 @@ class TsneConfig:
         if isinstance(self.neighbor_options, Mapping):
             object.__setattr__(self, "neighbor_options",
                                tuple(sorted(self.neighbor_options.items())))
-        if self.bsp_impl not in BSP_IMPLS:
-            raise ValueError(f"unknown bsp_impl {self.bsp_impl!r} "
-                             f"(known: {', '.join(BSP_IMPLS)})")
+        for flag in ("bsp_impl", "fft_interp_impl"):
+            if getattr(self, flag) not in IMPLS:
+                raise ValueError(f"unknown {flag} {getattr(self, flag)!r} "
+                                 f"(known: {', '.join(IMPLS)})")
 
     def resolve_lr(self, n: int) -> float:
         if self.learning_rate == "auto":

@@ -92,6 +92,21 @@ def test_knn_matches_jax(block_q, block_db):
         jrecall_at_k(np.asarray(jb_idx), b_idx.numpy()) >= 0.999
 
 
+@pytest.mark.parametrize("layout", ["repeat", "tile"])
+@pytest.mark.parametrize("block_q,block_db", [(128, 256), (512, 2048)])
+def test_knn_breaks_ties_as_jax(layout, block_q, block_db):
+    # every row five times (adjacent, or 100 rows apart across chunks):
+    # each row's four copies tie at distance 0, and lax.top_k keeps the
+    # lower index among equal distances
+    rows = np.random.default_rng(43).normal(size=(100, 20)).astype(np.float32)
+    x = np.repeat(rows, 5, axis=0) if layout == "repeat" else np.tile(rows, (5, 1))
+    j_idx, j_d2 = jknn(jnp.asarray(x), 6, block_q=block_q, block_db=block_db)
+    idx, d2 = knn(T(x), 6, block_q=block_q, block_db=block_db)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    # the tolerance of test_knn_matches_jax
+    np.testing.assert_allclose(d2.numpy(), np.asarray(j_d2), rtol=1e-4, atol=1e-4)
+
+
 def test_neighbor_registry():
     assert "exact" in available_neighbor_backends()
     nb = make_neighbor_backend("exact", {"block_q": 32})
@@ -346,6 +361,20 @@ def test_estimator_fft_backend_options(monkeypatch):
     with pytest.raises(ValueError, match="MAX_N_BOXES"):
         TSNE(method="fft", perplexity=10.0, n_iter=2, device="cpu",
              backend_options={"fft_n_boxes": 129}).fit(x)
+
+
+def test_fft_interp_impl_is_accepted_and_checked():
+    # the reference's dispatch flag carries across; it routes nothing here
+    x = make_points(80, seed=6, dim=5)
+    est = TSNE(method="fft", perplexity=8.0, n_iter=10, kl_every=5, random_state=0,
+               backend_options={"fft_interp_impl": "pallas"}, device="cpu")
+    emb = est.fit_transform(x)
+    assert emb.shape == (80, 2) and np.isfinite(emb).all()
+    assert np.isfinite(est.kl_divergence_)
+    assert TsneConfig(fft_interp_impl="xla").fft_interp_impl == "xla"
+    with pytest.raises(ValueError, match="unknown fft_interp_impl"):
+        TSNE(perplexity=8.0, n_iter=2, device="cpu",
+             backend_options={"fft_interp_impl": "triton"}).fit(x)
 
 
 def test_tsne_default_device_needs_a_gpu(monkeypatch):
