@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU: build, check, fit, report.
 
     python3 chip_smoke.py                  # the full run: one card, no arguments
-    python3 chip_smoke.py --n-iter 10      # shorter descents (both fits), same phases
+    python3 chip_smoke.py --n-iter 300 --exaggeration-iters 150   # shorter descents
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -20,7 +20,9 @@ result line):
                pairwise is also checked on ragged tiles (the main path's
                last block and chunk), on rows at no 16-byte boundary and
                at D = 781, and by the KNN of 4 096 queries from its tiles
-               against the KNN from the plain tiles; attractive with the
+               against the KNN from the plain tiles; the KNN of 100 rows
+               five times each on the card must give the plain CPU KNN's
+               indices (equal distances in index order); attractive with the
                rows' real lengths (p_len, as the fits call it) and over
                the full width W, both timed.  bsp is also checked on
                4 096 rows at every K where ops.bsp_plan changes its
@@ -39,7 +41,11 @@ result line):
                lattice (one far outlier puts the other points into the
                first band), which is timed.
                Device times from torch.profiler for every kernel row; the
-               spread's also at 128 boxes.
+               spread's also at 128 boxes.  bh_traverse (the Barnes-Hut
+               walk) must repeat its plain twin bit for bit (force, z,
+               steps) at N = 1, 31, 33, 5 000 and 70 000, theta 0.5 and
+               0.2, on compressed and uncompressed trees, at a random
+               embedding, on duplicate and on coincident points.
 4. gradient -- bh_gradient and fft_repulsion at a fixed y, N = 5 000, on
                the card against the port's own CPU path; and small fits
                (N = 500, Barnes-Hut and FFT) on the card against the same
@@ -47,12 +53,13 @@ result line):
 5. fit      -- repro_torch.api.TSNE(method="barnes_hut",
                neighbor_method="exact", perplexity=30, random_state=0) on
                make_dataset("mnist") (70 000 x 784), with every kernel's
-               launch count reset before and read after; pairwise, bsp,
-               morton and attractive must be > 0, every attractive launch
-               must carry p_len, and the embedding and KL
-               must be finite.  300 descent steps (150 exaggerated)
-               instead of the default 1 000 keep the script well inside
-               its time limit.
+               launch count reset before and read after, the default
+               1 000 descent steps (250 exaggerated); pairwise and bsp
+               must be > 0, morton, attractive and bh_traverse launched
+               once a step, every attractive launch must carry p_len, and
+               the embedding and KL must be finite.  Then bh_traverse at
+               the fitted embedding: checked bit for bit as in 3 and timed
+               (its kernels-line row).
 6. breakdown -- one Barnes-Hut step at the fitted embedding, stage by
                stage (Morton, sort, tree, summaries, traversal,
                attractive, update), to show where a step's time goes,
@@ -60,8 +67,8 @@ result line):
                idle share: kernel time from a torch.profiler trace of one
                descent step over the CUDA-event time a step of several
                run back to back with no sync, as the fit runs them.
-7. fft fit  -- the same fit with method="fft" (48 boxes a dimension) and
-               the default 1 000 steps (250 exaggerated); pairwise, bsp,
+7. fft fit  -- the same fit with method="fft" (48 boxes a dimension),
+               also 1 000 steps (250 exaggerated); pairwise, bsp,
                attractive, fft_spread and fft_gather must be > 0, with
                spread = gather = attractive = steps run.  A second descent
                from the fit's graph and initial embedding
@@ -335,29 +342,88 @@ def check_gather(what: str, ph_k, ph_p, quiet: bool = False) -> float:
     return err
 
 
+def kernel_row(name, err, ms, plain_ms, flops, nbytes, library_ms=None,
+               peak=PEAK_FP32_FLOPS, sfu=0.0, **extra) -> dict:
+    """One entry of the kernels line (its launches are filled in after the
+    fits), logged."""
+    from repro_torch.kernels import ops
+    b_ms, b_by = bound(flops, nbytes, peak, sfu)
+    e = ops.kernel_registry()[name]
+    log(f"kernel {name}: max_abs_err {err:.3e}  {ms:.4f} ms  plain "
+        f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it)  "
+        f"library {library_ms}" + "".join(f"  {k} {v}" for k, v in extra.items()))
+    return dict(name=name, route="cuda", source=e["source"], replaces=e["replaces"],
+                tpu_kernel=e["tpu"], launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, **extra)
+
+
+def check_knn_ties(x: torch.Tensor) -> None:
+    """KNN of 100 rows, each five times (adjacent, and 100 rows apart):
+    on the card, through the pairwise kernel, the indices must be those of
+    the plain KNN on the CPU, equal distances in index order as lax.top_k
+    keeps them (the kernel must give a row's copies equal distances)."""
+    from repro_torch.core import knn
+    rows = x[:100]
+    for layout, xs in (("adjacent", rows.repeat_interleave(5, 0)), ("apart", rows.repeat(5, 1))):
+        for bq, bdb in ((128, 256), (512, 2048)):
+            idx, d2 = knn.knn(xs, 6, bq, bdb)
+            idx_p, d2_p = knn.knn(xs.cpu(), 6, bq, bdb)
+            if not torch.equal(idx.cpu(), idx_p):
+                fail(f"KNN of duplicated rows ({layout}, blocks {bq} x {bdb}): the card's "
+                     f"indices differ from the CPU's in "
+                     f"{int((idx.cpu() != idx_p).any(1).sum())} of {xs.shape[0]} rows")
+    log("knn ties: 100 rows x 5 copies (adjacent and apart), k = 6, blocks 128 x 256 and "
+        "512 x 2048: the card's indices equal the plain KNN's on the CPU")
+
+
+def walk_inputs(y: torch.Tensor, compress: bool, depth: int = 16):
+    """(y_sorted, tree, summaries) of embedding y, built as bh_gradient builds them."""
+    from repro_torch.core import morton, quadtree
+    from repro_torch.core.summarize import summarize
+    from repro_torch.kernels import ops
+    cent, r_span = morton.span_radius(y)
+    codes_s, y_s, _ = quadtree.sort_points_by_code(y, ops.morton_encode(y, cent, r_span, depth))
+    tree = quadtree.build_quadtree(codes_s, depth=depth, compress=compress)
+    return y_s, tree, summarize(tree, y_s, r_span)
+
+
+def check_traverse(what: str, y: torch.Tensor) -> None:
+    """bh_traverse against its plain twin on the card, bit for bit (force,
+    z and steps), at N = 1, 31, 33, 5 000 and all of y, theta 0.5 and 0.2,
+    on the compressed and the uncompressed tree."""
+    from repro_torch.core.repulsive import bh_repulsion_sorted
+    from repro_torch.kernels import ops
+    longest = 0
+    for m in sorted({1, 31, 33, 5000, y.shape[0]}):
+        for compress in (True, False):
+            y_s, tree, summ = walk_inputs(y[:m].contiguous(), compress)
+            for theta in (0.5, 0.2):
+                got = ops.bh_traverse(y_s, tree, summ, theta)
+                ref = bh_repulsion_sorted(y_s, tree, summ, theta)
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    fail(f"bh_traverse is not bit-identical to its plain twin ({what}, N = "
+                         f"{m}, theta {theta}, compress {compress}): max |d force| "
+                         f"{float((got.force - ref.force).abs().max()):.3e}, steps differ "
+                         f"at {int((got.steps != ref.steps).sum())} points")
+                longest = max(longest, int(ref.steps.max()))
+    log(f"bh_traverse {what}: N = 1, 31, 33, 5 000, {y.shape[0]}; theta 0.5, 0.2; "
+        f"compressed and uncompressed trees: force, z and steps bit-identical to the "
+        f"plain walk (longest walk {longest} steps)")
+
+
 def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     from repro_torch.core import (
         _pairwise, attractive, bsp, fft_repulsion, knn, morton, similarity,
     )
     from repro_torch.kernels import ops
 
-    reg = ops.kernel_registry()
     dev = x.device
     n, d = x.shape
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows = []
 
-    def row(name, err, ms, plain_ms, flops, nbytes, library_ms=None,
-            peak=PEAK_FP32_FLOPS, sfu=0.0, **extra):
-        b_ms, b_by = bound(flops, nbytes, peak, sfu)
-        e = reg[name]
-        rows.append(dict(name=name, route="cuda", source=e["source"],
-                         replaces=e["replaces"], tpu_kernel=e["tpu"], launches=0,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, **extra))
-        log(f"kernel {name}: max_abs_err {err:.3e}  {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it)  "
-            f"library {library_ms}" + "".join(f"  {k} {v}" for k, v in extra.items()))
+    def row(*args, **kwargs):
+        rows.append(kernel_row(*args, **kwargs))
 
     # pairwise_sq_dists: one [KNN_BLOCK_Q, KNN_BLOCK_DB] x 784 tile of the KNN
     q = x[:KNN_BLOCK_Q].contiguous()
@@ -411,6 +477,8 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
         device_ms=kernel_ms(lambda: ops.bsp_search(d2, perplexity), "bsp"),
         plan=list(ops.bsp_plan(k)), bound_fp32_ms=fp32_ms)
 
+    check_knn_ties(x)
+
     # morton_encode on N points of an embedding-sized spread
     y = (torch.randn((n, 2), generator=gen) * 20.0).to(dev)
     cent, r_span = morton.span_radius(y)
@@ -423,6 +491,13 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
         cuda_ms(lambda: morton.morton_encode(y, cent, r_span), inner=20),
         flops=6.0 * n, nbytes=8.0 * n + 8.0 * n + 12.0,
         device_ms=kernel_ms(lambda: ops.morton_encode(y, cent, r_span), "morton"))
+
+    # bh_traverse on the same random embedding (its row, at the fitted
+    # embedding, comes after the Barnes-Hut fit), on every third point
+    # three times, and on coincident points
+    check_traverse("random embedding", y)
+    check_traverse("duplicate points", y[:n // 3].repeat_interleave(3, 0))
+    check_traverse("coincident points", torch.zeros((33, 2), device=dev))
 
     # attractive_ell on the real symmetric graph of the main path, with the
     # rows' real lengths (as the fits call it) and over the full width
@@ -683,15 +758,41 @@ def phase_fit(x_np: np.ndarray, method: str, n_iter: int, exag_iters: int,
     return est, launches
 
 
-def check_launches(method: str, launches: dict, needed: tuple, steps: int | None = None):
-    """Each kernel of the path launched; per-step kernels once a step."""
+def check_launches(method: str, launches: dict, needed: tuple, per_step: tuple,
+                   steps: int) -> None:
+    """Each kernel of the path launched; the per-step kernels once a step."""
     missing = [k for k in needed if launches[k] <= 0]
     if missing:
         fail(f"the {method} fit never launched: {missing}")
-    if steps is not None:
-        per_step = {k: launches[k] for k in ("attractive_ell", "fft_spread", "fft_gather")}
-        if any(v != steps for v in per_step.values()):
-            fail(f"the {method} fit ran {steps} steps but launched {per_step}")
+    counts = {k: launches[k] for k in per_step}
+    if any(v != steps for v in counts.values()):
+        fail(f"the {method} fit ran {steps} steps but launched {counts}")
+
+
+def phase_traverse(est) -> dict:
+    """bh_traverse at the Barnes-Hut fit's embedding: checked bit for bit
+    against the plain walk (check_traverse), then timed at the fit's
+    settings (theta 0.5, depth 16, compressed tree): the kernels line's
+    row.  Its bound counts the walks of this embedding: every visit's
+    15 fp32 operations (the three an accepted node adds besides, and its
+    reciprocal, not counted) at the fp32 rate, and each node's 40 bytes
+    (start, end, skip, count, sum_y, side), the points and the outputs
+    moved once."""
+    from repro_torch.core.repulsive import bh_repulsion_sorted
+    from repro_torch.kernels import ops
+    y = torch.as_tensor(est.embedding_).cuda()
+    check_traverse("fitted embedding", y)
+    y_s, tree, summ = walk_inputs(y, compress=True)
+    got = ops.bh_traverse(y_s, tree, summ, 0.5)
+    n, visits, n_nodes = y.shape[0], int(got.steps.sum()), int(tree.n_nodes)
+    return kernel_row(
+        "bh_traverse", 0.0,
+        cuda_ms(lambda: ops.bh_traverse(y_s, tree, summ, 0.5), inner=10),
+        cuda_ms(lambda: bh_repulsion_sorted(y_s, tree, summ, 0.5), reps=3, inner=1),
+        flops=15.0 * visits, nbytes=40.0 * n_nodes + 8.0 + (8.0 + 8.0 + 4.0 + 8.0) * n,
+        device_ms=kernel_ms(lambda: ops.bh_traverse(y_s, tree, summ, 0.5), "traverse"),
+        n_nodes=n_nodes, visits=visits, max_steps=int(got.steps.max()),
+        mean_steps=visits / n)
 
 
 def check_reproducible(est) -> None:
@@ -806,7 +907,6 @@ def phase_breakdown(est) -> dict:
     (device synchronised around each stage; median of 3 steps)."""
     from repro_torch.api import make_backend
     from repro_torch.core import attractive, morton, quadtree
-    from repro_torch.core.repulsive import bh_repulsion_sorted
     from repro_torch.core.summarize import summarize
     from repro_torch.core.tsne import (
         TsneConfig, TsneState, combine_forces, gd_update, tsne_step,
@@ -831,7 +931,7 @@ def phase_breakdown(est) -> dict:
         lap("build_quadtree")
         summ = summarize(tree, y_s, r_span)
         lap("summarize")
-        rep = bh_repulsion_sorted(y_s, tree, summ, backend.theta)
+        rep = ops.bh_traverse(y_s, tree, summ, backend.theta)
         lap("traversal")
         f_rep = torch.empty_like(y)
         f_rep[perm] = rep.force
@@ -912,17 +1012,18 @@ def phase_fft_breakdown(est) -> dict:
     return out
 
 
-BH_KERNELS = ("pairwise_sq_dists", "bsp_search", "morton_encode", "attractive_ell")
+BH_KERNELS = ("pairwise_sq_dists", "bsp_search", "morton_encode", "attractive_ell",
+              "bh_traverse")
 FFT_KERNELS = ("pairwise_sq_dists", "bsp_search", "attractive_ell", "fft_spread",
                "fft_gather")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n-iter", type=int, default=None,
-                    help="descent steps of both fits (default: 300 Barnes-Hut, 1000 FFT)")
-    ap.add_argument("--exaggeration-iters", type=int, default=None,
-                    help="exaggerated steps of both fits (default: 150 Barnes-Hut, 250 FFT)")
+    ap.add_argument("--n-iter", type=int, default=1000,
+                    help="descent steps of both fits (default: 1000, the estimator's)")
+    ap.add_argument("--exaggeration-iters", type=int, default=250,
+                    help="exaggerated steps of both fits (default: 250, the estimator's)")
     ap.add_argument("--kl-every", type=int, default=50)
     args = ap.parse_args()
 
@@ -937,16 +1038,15 @@ def main() -> None:
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
 
-    def steps(default_iter, default_exag):
-        n_iter = default_iter if args.n_iter is None else args.n_iter
-        exag = default_exag if args.exaggeration_iters is None else args.exaggeration_iters
-        return n_iter, exag
-
-    est, bh_launches = phase_fit(x_np, "barnes_hut", *steps(300, 150), args.kl_every)
-    check_launches("barnes_hut", bh_launches, BH_KERNELS)
+    fit_steps = (args.n_iter, args.exaggeration_iters, args.kl_every)
+    est, bh_launches = phase_fit(x_np, "barnes_hut", *fit_steps)
+    check_launches("barnes_hut", bh_launches, BH_KERNELS,
+                   ("morton_encode", "attractive_ell", "bh_traverse"), est.n_iter_)
+    rows.append(phase_traverse(est))
     phase_breakdown(est)
-    est, fft_launches = phase_fit(x_np, "fft", *steps(1000, 250), args.kl_every)
-    check_launches("fft", fft_launches, FFT_KERNELS, steps=est.n_iter_)
+    est, fft_launches = phase_fit(x_np, "fft", *fit_steps)
+    check_launches("fft", fft_launches, FFT_KERNELS,
+                   ("attractive_ell", "fft_spread", "fft_gather"), est.n_iter_)
     check_reproducible(est)
     fft_breakdown = phase_fft_breakdown(est)
 

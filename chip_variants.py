@@ -43,10 +43,16 @@ With ``--baseline DIR`` the spread.cu, bsp.cu and gather.cu of another
 checkout (unpacked at DIR, e.g. the parent commit's) are timed on the same
 inputs (the spread's zeroing separately); the gather set checks that the
 two gathers give the same bits, and times the other gather before and
-after each round.  ``wrappers`` times the six wrappers at the main path's
-shapes on random inputs (CUDA-event ms and the host's microseconds a
-call) and the pieces of a launch; ``--src DIR`` times another checkout's
-port instead (run parent, this, this, parent to compare).
+after each round.  ``knn`` times the knn phase at MNIST size with the
+port's merge of the chunks (torch.topk over distance-index keys) beside
+a stable sort and the tie-blind torch.topk.  ``traverse`` times
+``traverse.cu`` with 64, 128 or 256 threads a CTA on a random embedding
+and a fitted one, each checked bit for bit against the plain walk.
+``wrappers`` times the
+wrappers at the main path's shapes on random inputs (CUDA-event ms and
+the host's microseconds a call; bh_traverse where the port has it) and
+the pieces of a launch; ``--src DIR`` times another checkout's port
+instead (run parent, this, this, parent to compare).
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -557,13 +563,151 @@ def run_gather(x_np: np.ndarray, stream: int, baseline: Path | None) -> None:
             run(other_lib, other_regs, "baseline", baseline_run=True)
 
 
+def knn_merged(x: torch.Tensor, k: int, merge: str, block_q: int = 4096,
+               block_db: int = 8192):
+    """core/knn.py's blocked KNN with another merge of the chunks: "sort",
+    a stable sort of [best | chunk] by distance keeping the first k (ties
+    in index order, as lax.top_k); "topk", torch.topk on the distances
+    (ties in no order); "keys_cat", torch.topk over the distance-index
+    keys built by whole-array ops (int64 cast, shift, or) and torch.cat,
+    where core/knn.py writes them in place.  Returns (idx [N, k], d2 [N, k])."""
+    from repro_torch.kernels import ops
+    n = x.shape[0]
+    sqn = torch.sum(x * x, dim=1)
+    big = torch.finfo(x.dtype).max
+    out_d, out_i = [], []
+    for q0 in range(0, n, block_q):
+        q1 = min(q0 + block_q, n)
+        q_idx = torch.arange(q0, q1, device=x.device)
+        best_d = torch.full((q1 - q0, k), big, device=x.device)
+        best_i = torch.full((q1 - q0, k), n, dtype=torch.int64, device=x.device)
+        for c0 in range(0, n, block_db):
+            c1 = min(c0 + block_db, n)
+            col = torch.arange(c0, c1, device=x.device)
+            d2 = ops.pairwise_sq_dists(x[q0:q1], x[c0:c1], sqn[q0:q1], sqn[c0:c1])
+            if c0 < q1 and q0 < c1:
+                d2 = d2.masked_fill(col[None, :] == q_idx[:, None], big)
+            if merge == "keys_cat":
+                keys = d2.view(torch.int32).to(torch.int64)
+                keys <<= 32
+                keys |= col
+                best_key = best_i if c0 else (best_d.view(torch.int32).to(torch.int64) << 32) | n
+                best_i = torch.topk(torch.cat([best_key, keys], dim=1), k, dim=1,
+                                    largest=False, sorted=True).values
+                continue
+            cat_d = torch.cat([best_d, d2], dim=1)
+            cat_i = torch.cat([best_i, col.expand(q1 - q0, -1)], dim=1)
+            if merge == "sort":
+                best_d, arg = torch.sort(cat_d, dim=1, stable=True)
+                best_d, arg = best_d[:, :k], arg[:, :k]
+            else:
+                best_d, arg = torch.topk(cat_d, k, dim=1, largest=False, sorted=True)
+            best_i = torch.gather(cat_i, 1, arg)
+        if merge == "keys_cat":
+            best_d = (best_i >> 32).to(torch.int32).view(torch.float32)
+            best_i = best_i & 0xFFFFFFFF
+        out_d.append(best_d)
+        out_i.append(best_i)
+    return torch.cat(out_i).to(torch.int32), torch.cat(out_d)
+
+
+def run_knn(x: torch.Tensor) -> None:
+    """The knn phase at MNIST size (K = 90, blocks 4096 x 8192) with each
+    merge: the port's (torch.topk over 64-bit distance-index keys), a
+    stable sort, and the tie-blind torch.topk of the parent; seconds of
+    the whole KNN (synchronised), median of 3, two rounds in turn.  The
+    sort's indices must equal the port's."""
+    import time
+    from repro_torch.core import knn
+    runs = {"keys": lambda: knn.knn(x, 90, 4096, 8192),
+            "keys_cat": lambda: knn_merged(x, 90, "keys_cat"),
+            "sort": lambda: knn_merged(x, 90, "sort"),
+            "topk": lambda: knn_merged(x, 90, "topk")}
+    i_keys, d_keys = runs["keys"]()
+    same = {}
+    for name in ("keys_cat", "sort"):
+        i, d = runs[name]()
+        same[f"{name}_equals_keys"] = bool(torch.equal(i, i_keys) and torch.equal(d, d_keys))
+    i_topk, _ = runs["topk"]()
+    print(json.dumps(dict(knn="check", **same,
+                          topk_rows_differing=int((i_topk != i_keys).any(1).sum()))),
+          flush=True)
+    for rnd in range(2):
+        for name, fn in runs.items():
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            print(json.dumps(dict(knn=name, round=rnd, s=float(np.median(times)),
+                                  runs=times)), flush=True)
+
+
+# compile-time variants of csrc/traverse.cu: the CTA size
+TRAVERSE = {
+    "base": [],
+    "threads64": [("constexpr int THREADS = 256;", "constexpr int THREADS = 64;")],
+    "threads128": [("constexpr int THREADS = 256;", "constexpr int THREADS = 128;")],
+}
+
+
+def run_traverse(x_np: np.ndarray, stream: int) -> None:
+    """Each traverse.cu variant on a random embedding (randn x 20, as
+    chip_smoke.py's kernels phase) and at the embedding of a Barnes-Hut
+    fit of 1 000 steps (theta 0.5, compressed tree): bit-identical to the
+    plain walk, device ms (torch.profiler) and CUDA-event ms, two rounds."""
+    from repro_torch.api import TSNE
+    from repro_torch.core import morton, quadtree, summarize
+    from repro_torch.core.repulsive import bh_repulsion_sorted, theta_squared
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(0)
+    fitted = TSNE(perplexity=30, random_state=0, backend_options=dict(
+        knn_block_q=4096, knn_block_db=8192)).fit_transform(x_np)
+    inputs = {"random": (torch.randn((70_000, 2), generator=gen) * 20.0).cuda(),
+              "fitted": torch.as_tensor(fitted).cuda()}
+    libs = build_variants("traverse", TRAVERSE)
+    symbol, argtypes = ops._SIGNATURES["traverse"]
+    for what, y in inputs.items():
+        cent, r_span = morton.span_radius(y)
+        codes_s, y_s, _ = quadtree.sort_points_by_code(y, ops.morton_encode(y, cent, r_span))
+        tree = quadtree.build_quadtree(codes_s)
+        summ = summarize.summarize(tree, y_s, r_span)
+        ref = bh_repulsion_sorted(y_s, tree, summ, 0.5)
+        n = y.shape[0]
+        out = (torch.empty((n, 2), device="cuda"), torch.empty((n,), device="cuda"),
+               torch.empty((n,), dtype=torch.int64, device="cuda"))
+        for rnd in range(2):
+            for name, (lib, regs) in libs.items():
+                fn = getattr(lib, symbol)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+                def call():
+                    err = fn(y_s.data_ptr(), tree.start.data_ptr(), tree.end.data_ptr(),
+                             tree.skip.data_ptr(), tree.n_nodes.data_ptr(),
+                             summ.count.data_ptr(), summ.sum_y.data_ptr(),
+                             summ.side.data_ptr(), theta_squared(0.5), out[0].data_ptr(),
+                             out[1].data_ptr(), out[2].data_ptr(), n, tree.capacity, stream)
+                    if err:
+                        raise SystemExit(f"traverse/{name}: launch error {err}")
+
+                call()
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(out, ref))
+                print(json.dumps(dict(kernel="traverse", variant=name, input=what, round=rnd,
+                                      registers=regs, bit_identical=same,
+                                      device=device_ms(call, "traverse"),
+                                      ms=event_ms(call))), flush=True)
+
+
 def enter_device(dev: torch.device) -> None:
     with torch.cuda.device(dev):
         pass
 
 
 def run_wrappers() -> None:
-    """Each of the six wrappers (the call the main path makes) at the main
+    """Each wrapper (the call the main path makes) at the main
     path's shapes on random inputs: CUDA-event ms of back-to-back calls and
     the host's microseconds a call (perf_counter over calls enqueued with
     no sync), and the host cost of the launch's pieces.  Times the port on
@@ -596,6 +740,12 @@ def run_wrappers() -> None:
         "fft_spread": lambda: ops.fft_spread(base, wx, wy, charges, nodes),
         "fft_gather": lambda: ops.fft_gather(pot, base, wx, wy),
     }
+    if hasattr(ops, "bh_traverse"):
+        from repro_torch.core import quadtree, summarize
+        codes_s, y_s, _ = quadtree.sort_points_by_code(y, ops.morton_encode(y, cent, r_span))
+        tree = quadtree.build_quadtree(codes_s)
+        summ = summarize.summarize(tree, y_s, r_span)
+        calls["bh_traverse"] = lambda: ops.bh_traverse(y_s, tree, summ, 0.5)
     pieces = {
         "torch.cuda.current_device()": torch.cuda.current_device,
         "torch.cuda.current_stream(dev).cuda_stream":
@@ -639,9 +789,10 @@ def run_wrappers() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--sets", default="pairwise,attractive,spread,bsp,gather,wrappers",
+    ap.add_argument("--sets",
+                    default="pairwise,attractive,spread,bsp,gather,knn,traverse,wrappers",
                     help="comma-separated kernel sets (pairwise, attractive, spread, bsp, "
-                         "gather, wrappers)")
+                         "gather, knn, traverse, wrappers)")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="root of another checkout whose spread.cu, bsp.cu and gather.cu "
                          "are timed beside")
@@ -663,7 +814,8 @@ def main() -> None:
     stream = torch.cuda.current_stream().cuda_stream
     if "wrappers" in sets:
         run_wrappers()
-    if not set(sets) & {"pairwise", "attractive", "spread", "bsp", "gather"}:
+    if not set(sets) & {"pairwise", "attractive", "spread", "bsp", "gather", "knn",
+                        "traverse"}:
         return
     x_np = make_dataset("mnist")[0]
     x = torch.as_tensor(x_np).cuda()
@@ -673,6 +825,10 @@ def main() -> None:
         run_attractive(x, stream)
     if "bsp" in sets:
         run_bsp(x, stream, args.baseline)
+    if "knn" in sets:
+        run_knn(x)
+    if "traverse" in sets:
+        run_traverse(x_np, stream)
     if "spread" in sets:
         run_spread(x_np, stream, args.baseline)
     if "gather" in sets:

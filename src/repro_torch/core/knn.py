@@ -9,10 +9,12 @@ its Pallas kernel.  Exact, not approximate.
 
 Ties are broken as ``lax.top_k`` breaks them: among equal distances the
 lower database index wins.  ``torch.topk`` gives no order among ties, so
-the merge ranks 64-bit keys, the distance's float bits above the column
-index: a distance is >= 0 (the tile clamps at 0; the bits are clamped at
-0 too, which turns a -0.0 into +0.0), so its bits as an integer order as
-the floats do, and equal distances order by index.
+the merge ranks 64-bit keys, the distance's fp32 bits in the high word
+and the column index in the low one (both written in place through an
+int32 view of the keys: the byte order is little-endian on the CPU and
+the card).  A distance is >= +0.0 (the tile is max(..., 0), whose
+operands never make a -0.0), so its bits as an integer order as the
+floats do, and equal distances order by index.
 
 Unlike the reference, ``x`` is not padded to block multiples: the last
 query block and the last database chunk are simply shorter (the kernel
@@ -23,8 +25,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-
-_LOW = 0xFFFFFFFF   # the key's low 32 bits: the column index
 
 
 def knn(x: torch.Tensor, k: int, block_q: int = 512, block_db: int = 2048):
@@ -48,20 +48,19 @@ def knn(x: torch.Tensor, k: int, block_q: int = 512, block_db: int = 2048):
                           device=x.device)
         for c0 in range(0, n, block_db):
             c1 = min(c0 + block_db, n)
-            col = torch.arange(c0, c1, device=x.device)
+            col = torch.arange(c0, c1, dtype=torch.int32, device=x.device)
             d2 = ops.pairwise_sq_dists(x[q0:q1], x[c0:c1], sqn[q0:q1], sqn[c0:c1])
             if c0 < q1 and q0 < c1:      # this chunk holds some query rows
                 d2 = d2.masked_fill(col[None, :] == q_idx[:, None], big)
-            # clamping the bits at 0 maps -0.0 (and any negative) to +0.0
-            keys = torch.clamp_min(d2.view(torch.int32), 0).to(torch.int64)
-            keys <<= 32
-            keys |= col
-            best = torch.topk(torch.cat([best, keys], dim=1), k, dim=1, largest=False,
-                              sorted=True).values
+            keys = torch.empty((q1 - q0, k + c1 - c0), dtype=torch.int64, device=x.device)
+            keys[:, :k] = best
+            words = keys[:, k:].view(torch.int32)
+            words[:, 0::2] = col
+            words[:, 1::2] = d2.view(torch.int32)
+            best = torch.topk(keys, k, dim=1, largest=False, sorted=True).values
         out.append(best)
-    keys = torch.cat(out, dim=0)
-    d2 = (keys >> 32).to(torch.int32).view(torch.float32)
-    return (keys & _LOW).to(torch.int32), d2
+    words = torch.cat(out, dim=0).view(torch.int32)
+    return words[:, 0::2].contiguous(), words[:, 1::2].contiguous().view(torch.float32)
 
 
 def _float_bits(v: float) -> int:

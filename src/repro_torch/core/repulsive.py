@@ -3,13 +3,16 @@
 
 The reference walks the rope-linearised tree with ``vmap`` over a
 ``lax.while_loop``: each point steps ``ptr = open ? ptr+1 : skip[ptr]``.
-PyTorch has no such loop, so the port runs the same walk as a masked
-lockstep loop over all points at once: every step is a handful of
-whole-array ops, and the ``active`` mask (``ptr < n_nodes``) gates every
-update and the per-point step counter.  Termination is read from the
-device only every ``CHECK_EVERY`` steps, to keep host syncs rare; the
-extra masked steps change nothing.  The same code runs on the CPU and on
-the card (the reference has no Pallas kernel for this loop either).
+:func:`bh_repulsion_sorted` is the plain twin of the CUDA kernel
+``csrc/traverse.cu`` (registry name ``bh_traverse``, which has no Pallas
+counterpart: the reference compiles its loop with XLA), and the wrapper
+``kernels.ops.bh_traverse`` runs it for CPU tensors.  It is the same
+walk as a masked lockstep loop over all points at once: every step is a
+handful of whole-array ops, and the ``active`` mask (``ptr < n_nodes``)
+gates every update and the per-point step counter.  Termination is read
+from the device only every ``CHECK_EVERY`` steps, to keep host syncs
+rare; the extra masked steps change nothing.  The kernel does each
+point's arithmetic in this loop's order, bit for bit.
 
 Self-interaction is excluded exactly: when the current node's range holds
 the query point, its summary is used with the point subtracted.  Opening
@@ -33,13 +36,18 @@ class RepulsionResult(NamedTuple):
     steps: torch.Tensor        # [N] traversal lengths (perf diagnostic)
 
 
+def theta_squared(theta: float) -> float:
+    """theta^2 as the walk compares it: theta rounded to fp32, squared in fp32."""
+    return float(torch.tensor(theta, dtype=torch.float32) ** 2)
+
+
 def bh_repulsion_sorted(y_sorted: torch.Tensor, tree: LinearQuadtree,
                         summary: TreeSummary, theta: float) -> RepulsionResult:
     """Barnes-Hut repulsion for points in Morton-sorted order."""
     n = y_sorted.shape[0]
     dev = y_sorted.device
     dtype = y_sorted.dtype
-    theta2 = torch.tensor(theta, dtype=dtype) ** 2
+    theta2 = theta_squared(theta)
     cap = tree.capacity
     not_leaf = ~tree.is_leaf
     side2 = summary.side * summary.side

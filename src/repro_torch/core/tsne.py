@@ -10,7 +10,8 @@ eagerly: there is no ``jit``, and the device is read only at the
 
 Device: :func:`run_tsne` takes an explicit ``device`` (``None`` = cuda).
 On a CUDA device the KNN tile, the perplexity search, the Morton codes,
-the attractive forces and the FFT backend's spread and gather go through
+the Barnes-Hut traversal, the attractive forces and the FFT backend's
+spread and gather go through
 the hand-written kernels of ``repro_torch.kernels``; on the CPU through
 their plain twins.  The config keeps ``use_pallas`` / ``bsp_impl`` /
 ``fft_interp_impl`` / ``attractive_impl`` so that a JAX config carries
@@ -27,7 +28,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import attractive, bsp, morton, quadtree, similarity
-from repro_torch.core.repulsive import bh_repulsion_sorted
 from repro_torch.core.summarize import summarize
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -176,7 +176,7 @@ def bh_gradient(y, p_cols, p_vals, edges, theta: float, exaggeration: float,
     # --- summarization (step 4) ---
     summ = summarize(tree, y_s, r_span)
     # --- repulsive (step 6) ---
-    rep = bh_repulsion_sorted(y_s, tree, summ, theta)
+    rep = ops.bh_traverse(y_s, tree, summ, theta)
     z = torch.sum(rep.z_per_point)
     f_rep = torch.empty_like(y)
     f_rep[perm] = rep.force

@@ -11,11 +11,15 @@
 // itself dominates.
 //
 // Design: one thread per point, the interleave in uint32 exactly as the
-// TPU kernel does it, the code widened to int64 on the store.  The three
-// root-cell scalars (x and y of the root corner, the scale) are read from
-// a small device array, so the caller never copies them to the host.
-// The float arithmetic is the plain version's, operation for operation,
-// so the codes are bit-identical.
+// TPU kernel does it, the code widened to int64 on the store.  Every
+// thread computes the root cell from the bounding square's center and
+// half-span, read on the device, as core/morton.py::root_params does:
+// root = cent - r_span, scale = 2^(depth-1) / r_span, which PyTorch
+// evaluates as reciprocal(r_span) * 2^(depth-1).  So the wrapper runs no
+// tensor op but the output's allocation, and never syncs.  The float
+// arithmetic is the plain version's, operation for operation (the _rn
+// intrinsics keep nvcc from contracting into FMAs), so the codes are
+// bit-identical.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,16 +35,16 @@ __device__ __forceinline__ uint32_t expand_bits(uint32_t v) {
 }
 
 __global__ void morton_kernel(const float* __restrict__ y,
-                              const float* __restrict__ params,
+                              const float* __restrict__ cent,
+                              const float* __restrict__ r_span,
                               int64_t* __restrict__ codes, int n, int depth) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float root_x = params[0];
-  const float root_y = params[1];
-  const float scale = params[2];
+  const float r = __ldg(r_span);
+  const float root_x = __fsub_rn(__ldg(cent), r);
+  const float root_y = __fsub_rn(__ldg(cent + 1), r);
+  const float scale = __fmul_rn(__frcp_rn(r), (float)(1u << (depth - 1)));
   const float hi = (float)((1u << depth) - 1u);
-  // __fmul_rn / __fsub_rn keep the compiler from contracting into an FMA,
-  // which would round differently from the plain version's (y - root) * s
   const float mx_f = fminf(fmaxf(__fmul_rn(__fsub_rn(y[2 * i], root_x), scale), 0.0f), hi);
   const float my_f = fminf(fmaxf(__fmul_rn(__fsub_rn(y[2 * i + 1], root_y), scale), 0.0f), hi);
   uint32_t code = expand_bits((uint32_t)mx_f) | (expand_bits((uint32_t)my_f) << 1);
@@ -50,14 +54,14 @@ __global__ void morton_kernel(const float* __restrict__ y,
 
 }  // namespace
 
-// y [n, 2] fp32 row-major, params [3] = (root_x, root_y, scale) on the
-// device -> codes [n] int64.  1 <= depth <= 16.  Returns cudaGetLastError().
-extern "C" int morton_encode(const float* y, const float* params, int64_t* codes,
-                             int n, int depth, void* stream) {
+// y [n, 2] fp32 row-major, cent [2] and r_span [] fp32 on the device ->
+// codes [n] int64.  1 <= depth <= 16.  Returns cudaGetLastError().
+extern "C" int morton_encode(const float* y, const float* cent, const float* r_span,
+                             int64_t* codes, int n, int depth, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (depth < 1 || depth > 16) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   morton_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      y, params, codes, n, depth);
+      y, cent, r_span, codes, n, depth);
   return (int)cudaGetLastError();
 }

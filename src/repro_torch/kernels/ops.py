@@ -20,12 +20,14 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import _pairwise, attractive, bsp, fft_repulsion, morton
+from repro_torch.core import _pairwise, attractive, bsp, fft_repulsion, morton, repulsive
+from repro_torch.core.quadtree import LinearQuadtree
+from repro_torch.core.summarize import TreeSummary
 from repro_torch.kernels import build
 
 LAUNCHES: dict[str, int] = {
     "pairwise_sq_dists": 0, "bsp_search": 0, "morton_encode": 0,
-    "attractive_ell": 0, "fft_spread": 0, "fft_gather": 0,
+    "attractive_ell": 0, "fft_spread": 0, "fft_gather": 0, "bh_traverse": 0,
 }
 
 _P = ctypes.c_void_p
@@ -35,10 +37,11 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "pairwise": ("pairwise_sq_dists", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "bsp": ("bsp_search", [_P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P]),
-    "morton": ("morton_encode", [_P, _P, _P, _I, _I, _P]),
+    "morton": ("morton_encode", [_P, _P, _P, _P, _I, _I, _P]),
     "attractive": ("attractive_ell", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "spread": ("fft_spread", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P]),
     "gather": ("fft_gather", [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "traverse": ("bh_traverse", [_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _P]),
 }
 _ENTRIES: dict = {}   # source -> its C entry, argtypes and restype set
 
@@ -206,13 +209,61 @@ def morton_encode(y: torch.Tensor, cent: torch.Tensor, r_span: torch.Tensor,
 
 
 def morton_encode_cuda(y, cent, r_span, depth: int = morton.DEFAULT_DEPTH):
+    # the kernel computes the root cell (morton.root_params) from cent and
+    # r_span itself: no tensor op here but the allocation
     n = y.shape[0]
-    params = morton.root_params(cent, r_span, depth).contiguous()
     codes = torch.empty((n,), dtype=torch.int64, device=y.device)
     if n:
-        _launch("morton_encode", "morton", y.device, y.data_ptr(), params.data_ptr(),
-                codes.data_ptr(), n, depth)
+        _launch("morton_encode", "morton", y.device, y.data_ptr(), cent.data_ptr(),
+                r_span.data_ptr(), codes.data_ptr(), n, depth)
     return codes
+
+
+# ---------------------------------------------------------------------------
+# bh_traverse
+# ---------------------------------------------------------------------------
+
+def bh_traverse(y_sorted: torch.Tensor, tree: LinearQuadtree, summary: TreeSummary,
+                theta: float) -> repulsive.RepulsionResult:
+    """§3.5 Barnes-Hut walk of points in Morton order: y_sorted [N, 2] fp32,
+    the tree's [cap] int64 arrays and the summaries' [cap] fp32 arrays ->
+    (force [N, 2], z_per_point [N], steps [N] int64)."""
+    _check("y_sorted", y_sorted, torch.float32, 2)
+    for arg in ("start", "end", "skip"):
+        _check(arg, getattr(tree, arg), torch.int64, 1)
+    _check("n_nodes", tree.n_nodes, torch.int64, 0)
+    _check("count", summary.count, torch.float32, 1)
+    _check("sum_y", summary.sum_y, torch.float32, 2)
+    _check("side", summary.side, torch.float32, 1)
+    cap = tree.capacity
+    if (y_sorted.shape[1] != 2 or summary.sum_y.shape[1] != 2
+            or any(t.shape[0] != cap for t in (tree.end, tree.skip, summary.count,
+                                               summary.sum_y, summary.side))):
+        raise ValueError(f"expected y_sorted [N, 2], the tree's arrays [cap] and sum_y "
+                         f"[cap, 2]; got y_sorted {tuple(y_sorted.shape)}, start "
+                         f"{tuple(tree.start.shape)}, sum_y {tuple(summary.sum_y.shape)}")
+    if not 1 <= cap < 2**31:
+        raise ValueError(f"tree capacity {cap} must be in [1, 2^31)")
+    dev = _device(y_sorted=y_sorted, start=tree.start, end=tree.end, skip=tree.skip,
+                  n_nodes=tree.n_nodes, count=summary.count, sum_y=summary.sum_y,
+                  side=summary.side)
+    if dev.type == "cpu":
+        return repulsive.bh_repulsion_sorted(y_sorted, tree, summary, theta)
+    return bh_traverse_cuda(y_sorted, tree, summary, theta)
+
+
+def bh_traverse_cuda(y_sorted, tree, summary, theta: float) -> repulsive.RepulsionResult:
+    n, dev = y_sorted.shape[0], y_sorted.device
+    force = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    z = torch.empty((n,), dtype=torch.float32, device=dev)
+    steps = torch.empty((n,), dtype=torch.int64, device=dev)
+    if n:
+        _launch("bh_traverse", "traverse", dev, y_sorted.data_ptr(), tree.start.data_ptr(),
+                tree.end.data_ptr(), tree.skip.data_ptr(), tree.n_nodes.data_ptr(),
+                summary.count.data_ptr(), summary.sum_y.data_ptr(), summary.side.data_ptr(),
+                repulsive.theta_squared(theta), force.data_ptr(), z.data_ptr(),
+                steps.data_ptr(), n, tree.capacity)
+    return repulsive.RepulsionResult(force=force, z_per_point=z, steps=steps)
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +468,9 @@ def kernel_registry() -> dict:
     ``plain`` is the PyTorch twin, ``cuda`` launches the kernel (CUDA
     tensors only), ``wrapper`` is the device-dispatching entry the port
     calls, ``source`` the CUDA file; ``tpu`` and ``replaces`` name the
-    Pallas kernel it replaces as ``file:function`` and ``file:line``.
+    Pallas kernel it replaces as ``file:function`` and ``file:line``.  The
+    traversal replaces a ``lax.while_loop`` with no ``pallas_call``: its
+    ``tpu`` is None and ``replaces`` the loop's ``file:line``.
     """
     return {
         "pairwise_sq_dists": dict(
@@ -462,6 +515,13 @@ def kernel_registry() -> dict:
             tpu="src/repro/kernels/interp_kernel.py:_gather_kernel",
             replaces="src/repro/kernels/interp_kernel.py:76",
             doc="FFT repulsion: 3x3 Lagrange gather, nine independent float4 taps a point"),
+        "bh_traverse": dict(
+            plain=repulsive.bh_repulsion_sorted, cuda=bh_traverse_cuda,
+            wrapper=bh_traverse,
+            source="src/repro_torch/csrc/traverse.cu",
+            tpu=None,   # a jax.vmap over a lax.while_loop: no pallas_call
+            replaces="src/repro/core/repulsive.py:55",
+            doc="§3.5: rope-linearised BH walk, a thread a point in Morton order"),
     }
 
 

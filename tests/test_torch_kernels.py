@@ -223,20 +223,26 @@ def test_bsp_chunked_matches_whole():
 # ----------------------------------------------------------------- registry --
 
 def test_registry_lists_the_six_ported_kernels():
+    # the six Pallas kernels, and the Barnes-Hut traversal, which has none
     reg = ops.kernel_registry()
     assert set(reg) == {"pairwise_sq_dists", "bsp_search", "morton_encode",
-                        "attractive_ell", "fft_spread", "fft_gather"}
+                        "attractive_ell", "fft_spread", "fft_gather", "bh_traverse"}
     assert ops.available_kernels() == tuple(sorted(reg))
     for name, entry in reg.items():
         assert {"plain", "cuda", "doc", "tpu", "replaces", "wrapper", "source"} <= set(entry)
         assert callable(entry["plain"]) and callable(entry["cuda"])
-        tpu_file, tpu_fn = entry["tpu"].split(":")
-        assert tpu_file.startswith("src/repro/kernels/") and tpu_fn.startswith("_")
-        # replaces = file:line of that function's definition
         line_file, line = entry["replaces"].split(":")
-        assert line_file == tpu_file
-        src_line = (ROOT / tpu_file).read_text().splitlines()[int(line) - 1]
-        assert src_line.startswith(f"def {tpu_fn}(")
+        src_line = (ROOT / line_file).read_text().splitlines()[int(line) - 1]
+        if entry["tpu"] is None:
+            # the lax.while_loop body of the reference's traversal
+            assert name == "bh_traverse" and line_file == "src/repro/core/repulsive.py"
+            assert src_line.strip().startswith("def traverse(")
+        else:
+            tpu_file, tpu_fn = entry["tpu"].split(":")
+            assert tpu_file.startswith("src/repro/kernels/") and tpu_fn.startswith("_")
+            # replaces = file:line of that function's definition
+            assert line_file == tpu_file
+            assert src_line.startswith(f"def {tpu_fn}(")
         assert (ROOT / entry["source"]).is_file()
         assert entry["source"].startswith("src/repro_torch/csrc/")
         assert name in ops.LAUNCHES
@@ -264,6 +270,7 @@ def test_each_c_entry_is_bound_once(monkeypatch):
 
 _C_TYPES = {"const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
             "const int32_t*": ctypes.c_void_p, "int64_t*": ctypes.c_void_p,
+            "const int64_t*": ctypes.c_void_p,
             "void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float,
             "long long": ctypes.c_longlong}
 
@@ -300,6 +307,45 @@ def test_launch_passes_the_current_stream_and_counts_each_launch(monkeypatch):
         ops._launch("fft_gather", "gather", torch.device("cuda", 0), 3)
     assert ops.LAUNCHES["fft_gather"] == 1
     ops.reset_launch_counts()
+
+
+def test_morton_launch_reads_the_root_cell_on_the_device(monkeypatch):
+    # the kernel gets cent and r_span themselves: the wrapper computes no
+    # root cell, so it runs no tensor op but the codes' allocation
+    launches = []
+    monkeypatch.setattr(ops, "_launch", lambda *a: launches.append(a))
+    monkeypatch.setattr(ops.morton, "root_params", None)
+    y = torch.zeros((5, 2))
+    cent, r = torch.zeros(2), torch.tensor(1.0)
+    codes = ops.morton_encode_cuda(y, cent, r, depth=12)
+    assert codes.shape == (5,) and codes.dtype == torch.int64
+    (name, source, _, *args), = launches
+    assert (name, source) == ("morton_encode", "morton")
+    assert args == [y.data_ptr(), cent.data_ptr(), r.data_ptr(), codes.data_ptr(), 5, 12]
+
+
+def test_traverse_launch_passes_the_tree_on_the_device(monkeypatch):
+    # n_nodes goes to the kernel as a pointer (no host read); theta^2 is
+    # rounded as the plain walk rounds it
+    from repro_torch.core import quadtree, repulsive, summarize
+    launches = []
+    monkeypatch.setattr(ops, "_launch", lambda *a: launches.append(a))
+    y = T(np.random.default_rng(3).normal(size=(40, 2)).astype(np.float32))
+    cent, r = morton.span_radius(y)
+    cs, ys, _ = quadtree.sort_points_by_code(y, morton.morton_encode(y, cent, r))
+    tree = quadtree.build_quadtree(cs)
+    summ = summarize.summarize(tree, ys, r)
+    res = ops.bh_traverse_cuda(ys, tree, summ, 0.3)
+    (name, source, _, *args), = launches
+    assert (name, source) == ("bh_traverse", "traverse")
+    assert args == [ys.data_ptr(), tree.start.data_ptr(), tree.end.data_ptr(),
+                    tree.skip.data_ptr(), tree.n_nodes.data_ptr(), summ.count.data_ptr(),
+                    summ.sum_y.data_ptr(), summ.side.data_ptr(),
+                    float(torch.tensor(0.3) ** 2), res.force.data_ptr(),
+                    res.z_per_point.data_ptr(), res.steps.data_ptr(), 40, tree.capacity]
+    assert repulsive.theta_squared(0.3) == float(np.float32(0.3) * np.float32(0.3))
+    assert (res.force.shape, res.z_per_point.shape, res.steps.dtype) == \
+        ((40, 2), (40,), torch.int64)
 
 
 def test_cpu_tensor_takes_plain_path_and_counts_no_launch():

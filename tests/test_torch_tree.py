@@ -184,3 +184,85 @@ def test_attractive_edges_matches_jax(graph200):
     np.testing.assert_allclose(f.numpy(), np.asarray(jf), rtol=1e-5,
                                atol=1e-5 * float(np.abs(np.asarray(jf)).max()))
     np.testing.assert_allclose(float(kl), float(jkl), rtol=1e-5)
+
+
+# ---------------------------------------------------------------- traversal --
+
+def walk_points(case):
+    """Embeddings for the traversal checks: duplicate points (each drawn
+    point three times) and coincident ones (16 points at one spot beside a
+    cluster set)."""
+    if case == "duplicates":
+        return np.repeat(make_points(100, seed=71), 3, axis=0)
+    if case == "coincident":
+        return np.concatenate([np.zeros((16, 2), np.float32), make_points(80, seed=73)])
+    return make_points(300, seed=79)
+
+
+@pytest.mark.parametrize("compress", [True, False])
+@pytest.mark.parametrize("case", ["clusters", "duplicates", "coincident"])
+@pytest.mark.parametrize("theta", [0.5, 0.2])
+def test_traversal_matches_jax(case, compress, theta):
+    y = walk_points(case)
+    (_, ys, _, jt, r), (_, ys_t, _, tt, r_t) = both_trees(y, 16, compress)
+    js = jsumm(jt, ys, r)
+    jr = jrep(ys, jt, js, theta)
+    f_ref = np.asarray(jr.force)
+    scale = np.abs(f_ref).max()
+    ops.reset_launch_counts()
+    # the walk alone, through the kernel's wrapper, on the reference's own
+    # summaries: the same nodes in the same order, fp32 rounding only
+    same = ops.bh_traverse(ys_t, tt, TreeSummary(*(T(np.array(a)) for a in js)), theta)
+    np.testing.assert_array_equal(same.steps.numpy(), np.asarray(jr.steps))
+    np.testing.assert_allclose(same.force.numpy(), f_ref, rtol=1e-5, atol=1e-6 * scale)
+    np.testing.assert_allclose(same.z_per_point.numpy(), np.asarray(jr.z_per_point),
+                               rtol=1e-5)
+    # on the port's summaries (prefix sums in another order, see
+    # test_summaries_and_repulsion_match_jax for the tolerance)
+    tr = ops.bh_traverse(ys_t, tt, summarize(tt, ys_t, r_t), theta)
+    np.testing.assert_allclose(tr.force.numpy(), f_ref, rtol=1e-4, atol=1e-5 * scale)
+    np.testing.assert_allclose(float(tr.z_per_point.sum()), float(jnp.sum(jr.z_per_point)),
+                               rtol=1e-5)
+    assert np.isfinite(tr.force.numpy()).all()
+    assert ops.LAUNCHES["bh_traverse"] == 0      # CPU tensors: the plain twin
+
+
+@pytest.mark.parametrize("compress", [True, False])
+@pytest.mark.parametrize("case", ["clusters", "duplicates", "coincident"])
+def test_traversal_theta0_matches_exact(case, compress):
+    # theta = 0 opens every internal node: only leaves are summed, and a
+    # leaf holds one point or points of one code (here coincident ones),
+    # so the walk is the exact O(N^2) sum in another order
+    y = walk_points(case)
+    _, (_, ys_t, _, tt, r_t) = both_trees(y, 16, compress)
+    rep = ops.bh_traverse(ys_t, tt, summarize(tt, ys_t, r_t), 0.0)
+    f_ex, z_ex = jexact.exact_repulsion(jnp.asarray(ys_t.numpy()))
+    f_ex = np.asarray(f_ex)
+    np.testing.assert_allclose(rep.force.numpy(), f_ex, rtol=1e-4,
+                               atol=1e-5 * np.abs(f_ex).max())
+    np.testing.assert_allclose(float(rep.z_per_point.sum()), float(z_ex), rtol=1e-5)
+    # every walk visits every node
+    assert (rep.steps == tt.n_nodes).all()
+
+
+def test_bh_traverse_wrapper_on_cpu_is_the_twin():
+    y = make_points(257, seed=83)
+    _, (_, ys_t, _, tt, r_t) = both_trees(y, 16, True)
+    summ = summarize(tt, ys_t, r_t)
+    ops.reset_launch_counts()
+    got = ops.bh_traverse(ys_t, tt, summ, 0.5)
+    ref = bh_repulsion_sorted(ys_t, tt, summ, 0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert got.steps.dtype == torch.int64
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+    # inputs the kernel does not take are refused
+    with pytest.raises(TypeError, match="int64"):
+        ops.bh_traverse(ys_t, tt._replace(skip=tt.skip.int()), summ, 0.5)
+    with pytest.raises(TypeError, match="float32"):
+        ops.bh_traverse(ys_t.double(), tt, summ, 0.5)
+    with pytest.raises(ValueError, match="sum_y"):
+        ops.bh_traverse(ys_t, tt, summ._replace(sum_y=summ.sum_y[:-1]), 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.bh_traverse(ys_t, tt, summ._replace(sum_y=summ.sum_y.T.contiguous().T), 0.5)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.bh_traverse(ys_t, tt, summ._replace(side=summ.side.to("meta")), 0.5)
