@@ -81,6 +81,33 @@ result line):
                device times at the fitted embedding, alone and in the
                profiled step; and the idle share as in 6.
 
+9. approx-knn -- rp_forest (default options) and then nn_descent on all of
+               make_dataset("mouse_1p3m") (1 291 337 x 20, K = 90): the
+               seconds of each, every row valid (in range, no self, no
+               duplicate), the reported d2 the true distance on 4 096
+               sampled rows, and the recall on those rows against their
+               exact neighbours (pairwise kernel tiles, self masked).  At
+               N = 20 000 of the same rows the card's rp_forest graph
+               against the CPU's (the same draws): recall of one against
+               the other >= 0.99, their recalls against exact within 0.01.
+10. approx fit -- TSNE(method="barnes_hut", neighbor_method="rp_forest",
+               perplexity=30, random_state=0) on MNIST's train split (the
+               first 60 000 rows) with a forest of 32 trees of >= 128
+               points (APPROX_FOREST), at the other fits' steps: pairwise
+               must launch 0 times, bsp > 0, morton, attractive and
+               bh_traverse once a step; the same fit on the exact graph
+               must end within 0.15 of its KL.
+11. transform -- the 10 000 held-out rows through the rp_forest fit's
+               query_index_ and through an exact index over the train
+               split (rows/s of each at the default batch of 128; the
+               exact one must launch pairwise_sq_dists and bsp_search,
+               the forest one bsp_search); the forest query's recall
+               against exact >= 0.9 (the default forest's printed beside
+               it); embedding-space 5-NN label accuracy >= the input-space
+               baseline - 0.05; 256 rows on the card against the CPU
+               through the same exact index (the tolerance in the
+               phase); save then load must serve the same transform.
+
 Every kernel must be launched by at least one of the two fits.
 
 The line before the last is the kernels JSON object; the last line is
@@ -225,20 +252,20 @@ def check_pairwise(what: str, q, c):
     return float(err.max())
 
 
-def knn_rows(x, nq: int, k: int, dist):
-    """K nearest neighbours of the first ``nq`` rows of ``x`` among all its
-    rows (self excluded) from the tiles ``dist`` gives, merged as
-    core/knn.py merges them: (idx [nq, k], d2 [nq, k] ascending)."""
-    n = x.shape[0]
-    sqn = torch.sum(x * x, 1)
+def knn_rows(x, rows, k: int, dist):
+    """K nearest neighbours of ``x[rows]`` among all rows of ``x`` (self
+    excluded) from the tiles ``dist`` gives, in chunks of KNN_BLOCK_DB
+    columns: (idx [R, k], d2 [R, k] ascending)."""
+    n, nq = x.shape[0], rows.shape[0]
+    q = x[rows].contiguous()
+    q_sqn, sqn = torch.sum(q * q, 1), torch.sum(x * x, 1)
     big = torch.finfo(x.dtype).max
-    rows = torch.arange(nq, device=x.device)
     best_d = torch.full((nq, k), big, dtype=x.dtype, device=x.device)
     best_i = torch.full((nq, k), -1, dtype=torch.int64, device=x.device)
     for c0 in range(0, n, KNN_BLOCK_DB):
         c1 = min(c0 + KNN_BLOCK_DB, n)
         col = torch.arange(c0, c1, device=x.device)
-        d2 = dist(x[:nq], x[c0:c1], sqn[:nq], sqn[c0:c1])
+        d2 = dist(q, x[c0:c1], q_sqn, sqn[c0:c1])
         d2 = d2.masked_fill(col[None, :] == rows[:, None], big)
         best_d, arg = torch.topk(torch.cat([best_d, d2], 1), k, dim=1, largest=False)
         best_i = torch.gather(torch.cat([best_i, col.expand(nq, -1)], 1), 1, arg)
@@ -253,8 +280,9 @@ def check_knn(x, k: int) -> None:
     from repro_torch.core import _pairwise
     from repro_torch.kernels import ops
     nq = KNN_BLOCK_Q
-    ik, _ = knn_rows(x, nq, k, ops.pairwise_sq_dists)
-    ip, dp = knn_rows(x, nq, k, _pairwise.pairwise_sq_dists)
+    rows = torch.arange(nq, device=x.device)
+    ik, _ = knn_rows(x, rows, k, ops.pairwise_sq_dists)
+    ip, dp = knn_rows(x, rows, k, _pairwise.pairwise_sq_dists)
     sqn = torch.sum(x.double() ** 2, 1)
     worst = 0.0
     for mine, other in ((ik, ip), (ip, ik)):
@@ -706,14 +734,18 @@ def phase_gradient(x: torch.Tensor) -> None:
 
 
 def phase_fit(x_np: np.ndarray, method: str, n_iter: int, exag_iters: int,
-              kl_every: int):
+              kl_every: int, neighbor_method: str = "exact",
+              neighbor_options: dict | None = None, label: str | None = None):
     """One fit through the estimator, every launch count reset before it
-    and read after it.  Returns (estimator, launches)."""
+    and read after it; ``label`` names it in the log (default: ``method``).
+    Returns (estimator, launches)."""
     from repro_torch.api import TSNE
     from repro_torch.kernels import ops
 
     stats = []
-    est = TSNE(method=method, neighbor_method="exact", perplexity=30,
+    name = label or method
+    est = TSNE(method=method, neighbor_method=neighbor_method,
+               neighbor_options=neighbor_options, perplexity=30,
                random_state=0, n_iter=n_iter, kl_every=kl_every, verbose=1,
                callbacks=[stats.append],
                backend_options=dict(knn_block_q=KNN_BLOCK_Q, knn_block_db=KNN_BLOCK_DB,
@@ -737,24 +769,24 @@ def phase_fit(x_np: np.ndarray, method: str, n_iter: int, exag_iters: int,
     finally:
         ops.attractive_ell_cuda = launch_attractive
     launches = dict(ops.LAUNCHES)
-    log(f"{method} fit: {sum(with_len)} of {len(with_len)} attractive_ell launches "
+    log(f"{name} fit: {sum(with_len)} of {len(with_len)} attractive_ell launches "
         "with the rows' real lengths (p_len)")
     if not all(with_len):
-        fail(f"the {method} fit launched attractive_ell without p_len")
+        fail(f"the {name} fit launched attractive_ell without p_len")
     t = est.timings_
-    log(f"{method} fit phases (s): " + json.dumps(
+    log(f"{name} fit phases (s): " + json.dumps(
         {k: t[k] for k in ("knn", "bsp", "symmetrize", "gradient_descent")}))
-    log(f"{method} fit: wall {wall:.2f} s, {t['gradient_descent'] / est.n_iter_:.6f} s "
+    log(f"{name} fit: wall {wall:.2f} s, {t['gradient_descent'] / est.n_iter_:.6f} s "
         f"per descent step over {est.n_iter_} steps")
-    log(f"{method} fit KL checkpoints: " + json.dumps(
+    log(f"{name} fit KL checkpoints: " + json.dumps(
         [[int(i), float(v)] for i, v in est.kl_history_]))
-    log(f"{method} fit max_traversal: {max(s.max_traversal for s in stats)}")
-    log(f"{method} fit launches: {json.dumps(launches)}")
+    log(f"{name} fit max_traversal: {max(s.max_traversal for s in stats)}")
+    log(f"{name} fit launches: {json.dumps(launches)}")
     emb = est.embedding_
     if emb.shape != (x_np.shape[0], 2) or not np.isfinite(emb).all():
-        fail(f"{method}: embedding not finite or of wrong shape {emb.shape}")
+        fail(f"{name}: embedding not finite or of wrong shape {emb.shape}")
     if not np.isfinite(est.kl_divergence_):
-        fail(f"{method}: final KL is not finite")
+        fail(f"{name}: final KL is not finite")
     return est, launches
 
 
@@ -1012,6 +1044,298 @@ def phase_fft_breakdown(est) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The approximate neighbours and the out-of-sample transform
+# ---------------------------------------------------------------------------
+
+# The approximate fit's forest.  The defaults (8 trees, leaves of >= 64
+# points: 118 at 60 000 rows) route the held-out rows to 59% of their 90
+# exact neighbours (the port and the JAX package alike; PERF.md), below
+# the reference's 0.9 query bar; 32 trees of >= 128 points (235) reach
+# 0.99.
+APPROX_FOREST = {"n_trees": 32, "leaf_size": 128}
+RECALL_ROWS = 4096          # sampled rows whose exact neighbours are computed
+TRAIN_ROWS = 60_000         # MNIST's own train split; the other 10 000 are new points
+
+
+def synced_seconds(fn):
+    """(fn(), its seconds, the card synchronised at both ends)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_graph(what: str, x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
+                rows: torch.Tensor, ref_idx: torch.Tensor) -> float:
+    """Every row of the graph valid (in range, no self, no duplicate); on
+    the sampled ``rows`` the reported d2 the true squared distance (fp64),
+    within pairwise_tol of the norms.  Returns the recall on ``rows``
+    against their exact neighbours ``ref_idx``."""
+    from repro_torch.neighbors import recall_at_k
+    n, k = idx.shape
+    i64 = idx.long()
+    if not bool(((i64 >= 0) & (i64 < n)).all()):
+        fail(f"{what}: a neighbour index out of range")
+    if bool((i64 == torch.arange(n, device=x.device)[:, None]).any()):
+        fail(f"{what}: a row lists itself")
+    srt = torch.sort(i64, dim=1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        fail(f"{what}: a row lists a neighbour twice")
+    xs, nb = x[rows].double(), x[i64[rows]].double()
+    true = torch.sum((xs[:, None, :] - nb) ** 2, -1)
+    sqn = torch.sum(x.double() ** 2, 1)
+    tol = pairwise_tol(true, sqn[rows][:, None], sqn[i64[rows]])
+    share = float(((d2[rows].double() - true).abs() / tol).max())
+    recall = recall_at_k(ref_idx.cpu().numpy(), idx[rows].cpu().numpy())
+    log(f"{what}: {n} rows x {k} valid (in range, no self, no duplicate); d2 on "
+        f"{rows.shape[0]} sampled rows {share:.3f} of the tolerance from the true distance "
+        f"at most; recall on them {recall:.6f}")
+    if share > 1.0:
+        fail(f"{what}: reported distances are not the true ones")
+    return recall
+
+
+def phase_approx_knn(k: int) -> dict:
+    """rp_forest (default options) and nn_descent on all of mouse_1p3m
+    (1 291 337 x 20) on the card: seconds, validity, recall on sampled
+    rows.  Then at N = 20 000 the card's rp_forest graph against the CPU's
+    (the same draws)."""
+    from repro_torch.core.knn import knn
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.neighbors import NNDescentNeighbors, RPForestNeighbors, recall_at_k
+
+    x_np, _ = make_dataset("mouse_1p3m")
+    x = torch.as_tensor(x_np).cuda()
+    n = x.shape[0]
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(17))[:RECALL_ROWS].cuda()
+    ref_idx, _ = knn_rows(x, rows, k, ops.pairwise_sq_dists)
+    out = {}
+    for backend in (RPForestNeighbors(), NNDescentNeighbors()):
+        torch.cuda.reset_peak_memory_stats()
+        (idx, d2), secs = synced_seconds(lambda: backend.neighbors(x, k))
+        recall = check_graph(f"{backend.name} on mouse_1p3m [{n}, {x.shape[1]}], K = {k}",
+                             x, idx, d2, rows, ref_idx)
+        out[backend.name] = dict(seconds=secs, recall=recall,
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"{backend.name} on mouse_1p3m: {secs:.3f} s, recall {recall:.6f} on "
+            f"{RECALL_ROWS} rows, peak {out[backend.name]['peak_gib']:.2f} GiB ({backend})")
+        del idx, d2
+
+    # the card's graph against the CPU's at N = 20 000: the same draws
+    # (a CPU generator), so the two graphs differ only where float order
+    # swaps near-tied neighbours
+    m = 20_000
+    xs = x[:m].contiguous()
+    card, _ = RPForestNeighbors().neighbors(xs, k)
+    cpu, _ = RPForestNeighbors().neighbors(xs.cpu(), k)
+    exact, _ = knn(xs, k, KNN_BLOCK_Q, KNN_BLOCK_DB)
+    exact = exact.cpu().numpy()
+    same = recall_at_k(cpu.numpy(), card.cpu().numpy())
+    r_card, r_cpu = recall_at_k(exact, card.cpu().numpy()), recall_at_k(exact, cpu.numpy())
+    log(f"rp_forest at N = {m}: card's graph against the CPU's {same:.6f} (>= 0.99); "
+        f"recall against exact: card {r_card:.6f}, cpu {r_cpu:.6f} (within 0.01)")
+    if same < 0.99 or abs(r_card - r_cpu) > 0.01:
+        fail("rp_forest on the card disagrees with the CPU's graph of the same draws")
+    out["n20000"] = dict(card_vs_cpu=same, recall_card=r_card, recall_cpu=r_cpu)
+    return out
+
+
+def phase_approx_fit(x_np: np.ndarray, n_iter: int, exag_iters: int, kl_every: int):
+    """The Barnes-Hut fit on an rp_forest graph of MNIST's train split, and
+    the same fit on the exact graph: KLs within 0.15 (the reference's bar,
+    tests/test_neighbors.py::test_bh_kl_on_approximate_graph).  The
+    approximate fit must launch no pairwise tile, bsp, and morton,
+    attractive and bh_traverse once a step.  Returns (approximate fit,
+    exact fit)."""
+    train = x_np[:TRAIN_ROWS]
+    steps = (n_iter, exag_iters, kl_every)
+    est_rp, launches = phase_fit(train, "barnes_hut", *steps, neighbor_method="rp_forest",
+                                 neighbor_options=APPROX_FOREST, label="rp_forest bh")
+    if launches["pairwise_sq_dists"] != 0:
+        fail(f"the rp_forest fit launched {launches['pairwise_sq_dists']} pairwise tiles")
+    check_launches("rp_forest bh", launches, ("bsp_search",),
+                   ("morton_encode", "attractive_ell", "bh_traverse"), est_rp.n_iter_)
+    est_ex, _ = phase_fit(train, "barnes_hut", *steps, label="exact-graph bh (train split)")
+    gap = abs(est_rp.kl_divergence_ - est_ex.kl_divergence_)
+    log(f"approx fit: KL rp_forest {est_rp.kl_divergence_:.6f}, exact graph "
+        f"{est_ex.kl_divergence_:.6f}, gap {gap:.6f} (< 0.15); knn {est_rp.timings_['knn']:.3f} s "
+        f"against {est_ex.timings_['knn']:.3f} s")
+    if not gap < 0.15:
+        fail("the rp_forest fit's KL is not within 0.15 of the exact-graph fit's")
+    return est_rp, est_ex
+
+
+def knn_labels(train_t: torch.Tensor, test_t: torch.Tensor, train_labels: np.ndarray,
+               chunk: int = 1024) -> np.ndarray:
+    """The 5-NN vote of each test row among the train rows (squared
+    euclidean distance; ties of the vote to the smaller label, as
+    np.bincount(...).argmax())."""
+    idx = []
+    for r0 in range(0, test_t.shape[0], chunk):
+        d2 = torch.cdist(test_t[r0:r0 + chunk], train_t)
+        idx.append(torch.topk(d2, 5, dim=1, largest=False).indices.cpu().numpy())
+    votes = train_labels[np.concatenate(idx)]
+    return np.array([np.bincount(v).argmax() for v in votes])
+
+
+def query_rows(index, q: torch.Tensor, k: int, chunk: int = 128) -> np.ndarray:
+    """index.query in chunks of ``chunk`` rows (a transform batch's)."""
+    return np.concatenate([index.query(q[r0:r0 + chunk], k)[0].cpu().numpy()
+                           for r0 in range(0, q.shape[0], chunk)])
+
+
+class Replay:
+    """A query index that answers with given (idx, d2), chunk after chunk,
+    in the order transform_batch asks."""
+
+    def __init__(self, idx: torch.Tensor, d2: torch.Tensor):
+        self.idx, self.d2, self.at = idx, d2, 0
+
+    def query(self, q: torch.Tensor, k: int):
+        rows = slice(self.at, self.at + q.shape[0])
+        self.at += q.shape[0]
+        return self.idx[rows].to(q.device), self.d2[rows].to(q.device)
+
+
+def phase_transform(est, x_np: np.ndarray, labels: np.ndarray) -> dict:
+    """The held-out 10 000 rows through the rp_forest fit's query_index_
+    and through an exact index over the train split: rows/s, the forest
+    query's recall (>= 0.9), label accuracy against the input-space
+    baseline, 256 rows on the card against the CPU, and save/load."""
+    import tempfile
+
+    from repro_torch.api import TSNE
+    from repro_torch.embed.transform import TransformConfig, prepare_batch, transform_batch
+    from repro_torch.kernels import ops
+    from repro_torch.neighbors import (
+        ExactNeighbors, RPForestNeighbors, build_query_index, recall_at_k,
+    )
+
+    cfg = TransformConfig()
+    train_t = torch.as_tensor(x_np[:TRAIN_ROWS]).cuda()
+    test_np = x_np[TRAIN_ROWS:]
+    test_t = torch.as_tensor(test_np).cuda()
+    y_ref = torch.as_tensor(est.embedding_).cuda()
+    k, perp = est.query_k_, float(est.perplexity)
+    out = {"batch_size": cfg.batch_size, "rows": test_np.shape[0], "k": k}
+
+    forest, out["forest_build_s"] = synced_seconds(lambda: est.query_index_)
+    exact_index = build_query_index(ExactNeighbors(), train_t)
+    runs = {}
+    for name, index in (("forest", forest), ("exact", exact_index)):
+        transform_batch(test_t[:cfg.batch_size], index, y_ref, k=k, perplexity=perp,
+                        config=cfg)                                 # warm-up batch
+        ops.reset_launch_counts()
+        (y, stats), secs = synced_seconds(lambda: transform_batch(
+            test_t, index, y_ref, k=k, perplexity=perp, config=cfg))
+        launches = dict(ops.LAUNCHES)
+        runs[name] = y
+        out[name] = dict(seconds=secs, rows_per_s=test_np.shape[0] / secs,
+                         steps_mean=float(stats.n_steps.mean()),
+                         launches={kk: v for kk, v in launches.items() if v})
+        log(f"transform via the {name} index: {test_np.shape[0]} rows in batches of "
+            f"{cfg.batch_size}: {secs:.3f} s, {out[name]['rows_per_s']:.1f} rows/s, "
+            f"{out[name]['steps_mean']:.1f} steps a row on average; launches "
+            f"{json.dumps(out[name]['launches'])}")
+        if not np.isfinite(y).all():
+            fail(f"the {name} transform is not finite")
+    if out["exact"]["launches"].get("pairwise_sq_dists", 0) <= 0 or \
+            out["exact"]["launches"].get("bsp_search", 0) <= 0 or \
+            out["forest"]["launches"].get("bsp_search", 0) <= 0:
+        fail("the transform did not launch pairwise_sq_dists (exact index) and bsp_search")
+
+    exact_idx = query_rows(exact_index, test_t, k)
+    out["forest_recall"] = recall_at_k(exact_idx, query_rows(forest, test_t, k))
+    default = RPForestNeighbors(seed=0).build_index(train_t)
+    out["default_forest_recall"] = recall_at_k(exact_idx, query_rows(default, test_t, k))
+    log(f"forest query recall at k = {k} on {test_np.shape[0]} held-out rows: "
+        f"{out['forest_recall']:.6f} (>= 0.9) with {APPROX_FOREST} ({tuple(forest.leaves.shape)}"
+        f" leaves); the default forest ({tuple(default.leaves.shape)}): "
+        f"{out['default_forest_recall']:.6f}")
+    if out["forest_recall"] < 0.9:
+        fail("the forest query's recall is below 0.9")
+
+    train_labels, test_labels = labels[:TRAIN_ROWS], labels[TRAIN_ROWS:]
+    base = float((knn_labels(train_t, test_t, train_labels) == test_labels).mean())
+    for name, y in runs.items():
+        acc = float((knn_labels(y_ref, torch.as_tensor(y).cuda(), train_labels)
+                     == test_labels).mean())
+        out[f"label_acc_{name}"] = acc
+        log(f"5-NN label accuracy, {name} transform: embedding {acc:.4f}, input space "
+            f"{base:.4f} (>= baseline - 0.05)")
+        if acc < base - 0.05:
+            fail(f"the {name} transform's points do not land in their own clusters")
+    out["label_acc_input"] = base
+
+    # 256 rows on the card against the CPU through the same exact index,
+    # stage by stage.  (1) The query: the card's pairwise tile (3xTF32) is
+    # not bit-identical to the CPU's fp32, so a row's neighbour set may
+    # differ (<= 1% of rows) and the distances may differ within the
+    # pairwise tolerance.  (2) prepare_batch from the same query answers
+    # (the CPU's, replayed on the card): p within the bsp kernel's
+    # tolerance on every row, y0 within 1e-4 of the fitted embedding's
+    # span.  (3) The transformed points: median |dy| <= 1e-5 x span and
+    # >= 98% of rows within 1e-3 x span.  A per-row bound on the output
+    # does not hold: rows that stop at the step cap on a ridge between two
+    # basins move far under last-bit differences (one moved 5.2 units on a
+    # span of 190.8, and 0.034 under 1e-6 relative noise in p on the CPU
+    # alone; PERF.md).
+    m = 256
+    cpu_index = build_query_index(ExactNeighbors(), train_t.cpu())
+    q = test_t[:m]
+    (i_card, d_card), (i_cpu, d_cpu) = exact_index.query(q, k), cpu_index.query(q.cpu(), k)
+    o_card, o_cpu = torch.sort(i_card.cpu(), 1), torch.sort(i_cpu, 1)
+    same_set = (o_card.values == o_cpu.values).all(1)
+    sqn = torch.sum(train_t.cpu() ** 2, 1)
+    d_c = torch.gather(d_card.cpu(), 1, o_card.indices)[same_set]
+    d_p = torch.gather(d_cpu, 1, o_cpu.indices)[same_set]
+    tol = pairwise_tol(d_p, torch.sum(q.cpu() ** 2, 1)[same_set][:, None],
+                       sqn[o_cpu.values[same_set].long()])
+    d_share = float(((d_c - d_p).abs() / tol).max())
+    span = float(np.ptp(est.embedding_))
+    p_card, _, y0_card = prepare_batch(q, Replay(i_cpu, d_cpu), y_ref, k, perp)
+    p_cpu, _, y0_cpu = prepare_batch(q.cpu(), cpu_index, y_ref.cpu(), k, perp)
+    p_err = float((p_card.cpu() - p_cpu).abs().max())
+    y0_err = float((y0_card.cpu() - y0_cpu).abs().max())
+    y_cpu, _ = transform_batch(q.cpu(), cpu_index, y_ref.cpu(), k=k, perplexity=perp, config=cfg)
+    y_card, _ = transform_batch(q, exact_index, y_ref, k=k, perplexity=perp, config=cfg)
+    dy = np.abs(y_card - y_cpu).max(1)
+    out["card_vs_cpu"] = dict(
+        other_sets=int((~same_set).sum()), d2_share=d_share, p_max_abs_err=p_err,
+        y0_max_abs_err=y0_err, span=span, median_dy=float(np.median(dy)),
+        max_dy=float(dy.max()), rows_over=int((dy > 1e-3 * span).sum()))
+    log(f"transform card vs cpu, {m} rows, exact index: {int((~same_set).sum())} rows with "
+        f"another neighbour set (<= 1%), distances {d_share:.3f} of the pairwise tolerance at "
+        f"most; from the same query answers p max |d| {p_err:.3e} (rtol 1e-5, atol 1e-7), "
+        f"y0 max |d| {y0_err:.3e} (<= 1e-4 x span {span:.3f}); transformed points median "
+        f"|dy| {np.median(dy):.3e} (<= 1e-5 x span), max {dy.max():.3e}, "
+        f"{int((dy > 1e-3 * span).sum())} rows over 1e-3 x span (<= 2%)")
+    if (~same_set).float().mean() > 0.01 or d_share > 1.0 or \
+            not torch.allclose(p_card.cpu(), p_cpu, rtol=1e-5, atol=1e-7) or \
+            y0_err > 1e-4 * span or np.median(dy) > 1e-5 * span or \
+            (dy > 1e-3 * span).mean() > 0.02:
+        fail("the transform on the card disagrees with the CPU's")
+
+    # save, then load: the loaded model serves the same transform (its
+    # forest rebuilt from the same draws); the reference's round-trip bar
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "mnist_rp.npz"
+        est.save(path)
+        loaded = TSNE.load(path)
+        again = loaded.transform(test_np[:m])
+    first = est.transform(test_np[:m])
+    err = float(np.abs(again - first).max())
+    log(f"save/load: the loaded model's transform of {m} rows, max |dy| {err:.3e} "
+        "(atol 1e-5)")
+    if not np.allclose(again, first, atol=1e-5):
+        fail("a saved and loaded model does not serve the same transform")
+    log("transform summary: " + json.dumps(out))
+    return out
+
+
 BH_KERNELS = ("pairwise_sq_dists", "bsp_search", "morton_encode", "attractive_ell",
               "bh_traverse")
 FFT_KERNELS = ("pairwise_sq_dists", "bsp_search", "attractive_ell", "fft_spread",
@@ -1032,7 +1356,7 @@ def main() -> None:
     from repro_torch.kernels import ops
     phase_build()
 
-    x_np, _ = make_dataset("mnist")
+    x_np, labels = make_dataset("mnist")
     x = torch.as_tensor(x_np).cuda()
     perplexity = 30.0
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
@@ -1049,6 +1373,10 @@ def main() -> None:
                    ("attractive_ell", "fft_spread", "fft_gather"), est.n_iter_)
     check_reproducible(est)
     fft_breakdown = phase_fft_breakdown(est)
+
+    phase_approx_knn(int(3 * perplexity))
+    est_rp, _ = phase_approx_fit(x_np, *fit_steps)
+    phase_transform(est_rp, x_np, labels)
 
     unlaunched = [k for k in ops.LAUNCHES if bh_launches[k] + fft_launches[k] == 0]
     if unlaunched:

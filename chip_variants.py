@@ -54,6 +54,18 @@ the host's microseconds a call; bh_traverse where the port has it) and
 the pieces of a launch; ``--src DIR`` times another checkout's port
 instead (run parent, this, this, parent to compare).
 
+``neighbors`` measures recall@90 (against exact, on 1 000 sampled rows)
+of rp_forest on mouse_1p3m against N (20 000 to all 1 291 337 rows,
+with and without its refine rounds) and against its options at all rows,
+and of nn_descent against its rounds; and the forest query's recall on
+MNIST's split (60 000 fitted rows, 10 000 queries) against the forest's
+options.  ``transform`` fits chip_smoke.py's rp_forest model and holds
+the transform of 256 held-out rows on the card against the CPU stage by
+stage (the full path; from the CPU's query answers; from the CPU's p),
+beside the CPU under 1e-6 and 1e-7 relative noise in p; then times the
+exact index's transform of the 10 000 held-out rows at batches of 128,
+512 and 2 048.
+
 Needs a CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -64,6 +76,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -701,6 +714,153 @@ def run_traverse(x_np: np.ndarray, stream: int) -> None:
                                       ms=event_ms(call))), flush=True)
 
 
+def recall_rows(x: torch.Tensor, rows: torch.Tensor, k: int) -> np.ndarray:
+    """Exact k nearest neighbours of ``x[rows]`` among all of ``x`` (self
+    excluded), through the exact query index."""
+    from repro_torch.neighbors import ExactNeighbors
+    idx, _ = ExactNeighbors(block_q=1024, block_db=65536).build_index(x).query(x[rows], k + 1)
+    idx, rows_h = idx.cpu().numpy(), rows.cpu().numpy()
+    return np.stack([r[r != i][:k] for r, i in zip(idx, rows_h)])
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_neighbors() -> None:
+    """Recall@90 of rp_forest against N (default options, with and without
+    the refine rounds) and against its options at 1.29 M rows, and of
+    nn_descent against its rounds, on mouse_1p3m (1 000 sampled rows);
+    the forest query's recall against the forest's options on MNIST's
+    split (60 000 fitted rows, the 10 000 others as queries)."""
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.neighbors import (
+        ExactNeighbors, NNDescentNeighbors, RPForestNeighbors, recall_at_k,
+    )
+    k = 90
+    x_all = torch.as_tensor(make_dataset("mouse_1p3m")[0]).cuda()
+    gen = torch.Generator().manual_seed(0)
+    for n in (20_000, 80_000, 320_000, x_all.shape[0]):
+        x = x_all[:n]
+        rows = torch.randperm(n, generator=gen)[:1000].cuda()
+        ref = recall_rows(x, rows, k)
+        backends = [RPForestNeighbors(refine_iters=0), RPForestNeighbors()]
+        if n == x_all.shape[0]:
+            backends += [RPForestNeighbors(n_trees=t, leaf_size=s)
+                         for t, s in ((16, 128), (32, 128), (32, 256))]
+            backends += [NNDescentNeighbors(n_iters=i) for i in (10, 20, 40)]
+        for nb in backends:
+            (idx, _), secs = timed(lambda: nb.neighbors(x, k))
+            print(json.dumps(dict(set="neighbors", data="mouse_1p3m", n=n, backend=repr(nb),
+                                  recall=recall_at_k(ref, idx[rows].cpu().numpy()),
+                                  seconds=secs)), flush=True)
+            del idx
+    x_np = make_dataset("mnist")[0]
+    train, test = torch.as_tensor(x_np[:60_000]).cuda(), torch.as_tensor(x_np[60_000:]).cuda()
+    exact = ExactNeighbors().build_index(train)
+    ref = np.concatenate([exact.query(test[r:r + 128], k)[0].cpu().numpy()
+                          for r in range(0, test.shape[0], 128)])
+    for t, s in ((8, 64), (16, 128), (32, 128), (16, 512), (32, 256)):
+        index, build_s = timed(lambda: RPForestNeighbors(n_trees=t, leaf_size=s).build_index(train))
+        got, query_s = timed(lambda: np.concatenate(
+            [index.query(test[r:r + 128], k)[0].cpu().numpy()
+             for r in range(0, test.shape[0], 128)]))
+        print(json.dumps(dict(set="neighbors", data="mnist query", n_trees=t, leaf_size=s,
+                              leaves=list(index.leaves.shape), recall=recall_at_k(ref, got),
+                              build_s=build_s, query_s=query_s)), flush=True)
+
+
+def run_transform() -> None:
+    """The transform of 256 held-out MNIST rows into the rp_forest fit of
+    chip_smoke.py (32 trees of >= 128 points, 1 000 steps), card against
+    CPU stage by stage: the full path, the card from the CPU's query
+    answers, the card from the CPU's p, and the CPU alone with p scaled
+    by 1 + 1e-6 and 1 + 1e-7 times N(0, 1) noise.  Then rows/s of the
+    exact index's transform of the 10 000 held-out rows against the batch
+    size."""
+    from repro_torch.api import TSNE
+    from repro_torch.core import bsp
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.embed import transform as tr
+    from repro_torch.neighbors import ExactNeighbors
+
+    x_np = make_dataset("mnist")[0]
+    est = TSNE(neighbor_method="rp_forest", neighbor_options={"n_trees": 32, "leaf_size": 128},
+               perplexity=30, random_state=0,
+               backend_options=dict(knn_block_q=4096, knn_block_db=8192)).fit(x_np[:60_000])
+    k, span = est.query_k_, float(np.ptp(est.embedding_))
+    train = torch.as_tensor(x_np[:60_000]).cuda()
+    test = torch.as_tensor(x_np[60_000:]).cuda()
+    y_ref = torch.as_tensor(est.embedding_).cuda()
+    q = test[:256]
+    card_index = ExactNeighbors().build_index(train)
+    cpu_index = ExactNeighbors().build_index(train.cpu())
+    q_card, q_cpu = card_index.query(q, k), cpu_index.query(q.cpu(), k)
+    p_cpu = bsp.binary_search_perplexity(q_cpu[1], 30.0)[0]
+
+    class Answers:
+        """Replays given (idx, d2) chunk after chunk."""
+        def __init__(self, idx, d2):
+            self.idx, self.d2, self.at = idx, d2, 0
+
+        def query(self, x, kk):
+            r = slice(self.at, self.at + x.shape[0])
+            self.at += x.shape[0]
+            return self.idx[r].to(x.device), self.d2[r].to(x.device)
+
+    def run(dev, answers, p_given=None, noise=0.0):
+        search = tr.bsp.binary_search_perplexity
+        at = [0]
+
+        def with_p(d2, perp, *a, **kw):
+            p, beta = search(d2, perp, *a, **kw)
+            r = slice(at[0], at[0] + d2.shape[0])
+            at[0] += d2.shape[0]
+            if p_given is not None:
+                p = p_given[r].to(d2.device)
+            if noise:
+                g = torch.Generator().manual_seed(at[0])
+                p = p * (1 + noise * torch.randn(p.shape, generator=g)).to(d2.device)
+            return p, beta
+
+        tr.bsp.binary_search_perplexity = with_p
+        try:
+            return tr.transform_batch(q.to(dev), Answers(*answers), y_ref.to(dev), k=k,
+                                      perplexity=30.0)
+        finally:
+            tr.bsp.binary_search_perplexity = search
+
+    y_cpu, stats = run("cpu", q_cpu)
+    same = (torch.sort(q_card[0].cpu(), 1).values == torch.sort(q_cpu[0], 1).values).all(1)
+    d2_rel = float(((q_card[1].cpu() - q_cpu[1]).abs() / q_cpu[1]).max())
+    print(json.dumps(dict(set="transform", rows=256, span=span, same_sets=int(same.sum()),
+                          d2_max_rel=d2_rel, at_step_cap=float((stats.n_steps == 120).mean()),
+                          mean_steps=float(stats.n_steps.mean()))), flush=True)
+    card = test.device
+    for name, (y, _) in (("card", run(card, q_card)),
+                         ("card from the cpu's query answers", run(card, q_cpu)),
+                         ("card from the cpu's p", run(card, q_cpu, p_given=p_cpu)),
+                         ("cpu, p x (1 + 1e-6 noise)", run("cpu", q_cpu, noise=1e-6)),
+                         ("cpu, p x (1 + 1e-7 noise)", run("cpu", q_cpu, noise=1e-7))):
+        dy = np.abs(y - y_cpu).max(1)
+        print(json.dumps(dict(set="transform", against="cpu", run=name, max_dy=float(dy.max()),
+                              median_dy=float(np.median(dy)),
+                              p99_dy=float(np.quantile(dy, 0.99)), worst_row=int(dy.argmax()),
+                              rows_over_1e3_span=int((dy > 1e-3 * span).sum()))), flush=True)
+    for batch in (128, 512, 2048):
+        cfg = tr.TransformConfig(batch_size=batch)
+        tr.transform_batch(test[:batch], card_index, y_ref, k=k, perplexity=30.0, config=cfg)
+        (_, st), secs = timed(lambda: tr.transform_batch(test, card_index, y_ref, k=k,
+                                                         perplexity=30.0, config=cfg))
+        print(json.dumps(dict(set="transform", index="exact", batch_size=batch,
+                              rows_per_s=test.shape[0] / secs, seconds=secs,
+                              mean_steps=float(st.n_steps.mean()))), flush=True)
+
+
 def enter_device(dev: torch.device) -> None:
     with torch.cuda.device(dev):
         pass
@@ -790,9 +950,10 @@ def run_wrappers() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sets",
-                    default="pairwise,attractive,spread,bsp,gather,knn,traverse,wrappers",
-                    help="comma-separated kernel sets (pairwise, attractive, spread, bsp, "
-                         "gather, knn, traverse, wrappers)")
+                    default="pairwise,attractive,spread,bsp,gather,knn,traverse,wrappers,"
+                            "neighbors,transform",
+                    help="comma-separated sets (pairwise, attractive, spread, bsp, gather, "
+                         "knn, traverse, wrappers, neighbors, transform)")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="root of another checkout whose spread.cu, bsp.cu and gather.cu "
                          "are timed beside")
@@ -814,6 +975,10 @@ def main() -> None:
     stream = torch.cuda.current_stream().cuda_stream
     if "wrappers" in sets:
         run_wrappers()
+    if "neighbors" in sets:
+        run_neighbors()
+    if "transform" in sets:
+        run_transform()
     if not set(sets) & {"pairwise", "attractive", "spread", "bsp", "gather", "knn",
                         "traverse"}:
         return

@@ -1,8 +1,10 @@
 """Public t-SNE surface of the port: the estimator + backend registry.
 
     from repro_torch.api import TSNE
-    emb = TSNE(method="barnes_hut", perplexity=30).fit_transform(x)   # on cuda
-    emb = TSNE(method="fft", device="cpu").fit_transform(x)           # FIt-SNE, CPU
+    est = TSNE(method="barnes_hut", perplexity=30)    # on cuda
+    emb = est.fit_transform(x)
+    y_new = est.transform(x_new)                        # new points, no refit
+    emb = TSNE(method="fft", device="cpu").fit_transform(x)   # FIt-SNE, CPU
 """
 from repro_torch.core.tsne import (
     GradResult, IterationStats, NeighborGraph, ObserverFn, TsneConfig,
@@ -14,18 +16,19 @@ from repro_torch.api.backends import (
 )
 from repro_torch.api.estimator import TSNE
 from repro_torch.neighbors import (
-    NeighborBackend, available_neighbor_backends, make_neighbor_backend,
-    register_neighbor_backend, unregister_neighbor_backend,
+    NeighborBackend, NeighborIndex, available_neighbor_backends, build_query_index,
+    make_neighbor_backend, register_neighbor_backend, unregister_neighbor_backend,
 )
+from repro_torch.embed import TransformConfig
 
 __all__ = [
     "TSNE",
     "GradientBackend", "ExactBackend", "BarnesHutBackend", "FFTBackend",
     "register_backend", "unregister_backend", "available_backends",
     "make_backend",
-    "NeighborBackend", "register_neighbor_backend",
+    "NeighborBackend", "NeighborIndex", "register_neighbor_backend",
     "unregister_neighbor_backend", "available_neighbor_backends",
-    "make_neighbor_backend",
+    "make_neighbor_backend", "build_query_index", "TransformConfig",
     "GradResult", "IterationStats", "NeighborGraph", "ObserverFn",
     "TsneConfig", "TsneResult", "preprocess", "run_tsne",
 ]

@@ -1,13 +1,15 @@
 """scikit-learn-compatible ``TSNE`` estimator: port of ``repro/api/estimator.py``
-(``fit``, ``fit_transform``, parameters and fitted attributes; ``transform``,
-``save`` and ``load`` come with the out-of-sample slice).
+(``fit``, ``fit_transform``, the out-of-sample ``transform``, ``save`` and
+``load``; the reference's ``trace=`` comes with the observability port).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Iterable, Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.api.backends import GradientBackend, make_backend
 from repro_torch.core.tsne import IterationStats, ObserverFn, TsneConfig, run_tsne
@@ -182,9 +184,156 @@ class TSNE:
         self.n_features_in_ = x.shape[1]
         self.neighbor_graph_ = result.graph
         self.n_neighbors_ = config.resolve_n_neighbors(n)
+        self._x_fit = x
+        self._query_index = None            # built lazily on first transform
         return self
 
     def fit_transform(self, x, y=None, y0=None) -> np.ndarray:
         """Fit x and return the [n_samples, 2] embedding."""
         self.fit(x, y, y0=y0)
         return self.embedding_
+
+    # -- out-of-sample ------------------------------------------------------
+
+    def _check_fitted(self) -> None:
+        if getattr(self, "embedding_", None) is None:
+            raise ValueError("this TSNE instance is not fitted yet: call "
+                             "fit / fit_transform (or TSNE.load) first")
+
+    @property
+    def query_index_(self):
+        """Neighbor-backend query index over the fitted inputs, on
+        ``device`` (lazy).
+
+        Built by the backend that built the fit's KNN graph (``rp_forest``
+        builds its forest; backends without a query path fall back to
+        exact), then cached until the next ``fit``.
+        """
+        self._check_fitted()
+        if getattr(self, "_query_index", None) is None:
+            from repro_torch.neighbors import build_query_index, make_neighbor_backend
+            config = self._build_config()
+            backend = make_neighbor_backend(config.neighbor_method,
+                                            config.resolve_neighbor_options())
+            x = torch.as_tensor(self._x_fit).to(self.device)
+            self._query_index = build_query_index(backend, x)
+        return self._query_index
+
+    @property
+    def query_k_(self) -> int:
+        """Neighbor width for out-of-sample queries (the fit's k)."""
+        self._check_fitted()
+        return int(self.n_neighbors_)
+
+    def transform(self, x_new, *, transform_config=None, return_stats: bool = False):
+        """Embed new points into the frozen fitted embedding: no refit.
+
+        Each row of ``x_new [M, n_features]`` finds its ``query_k_`` nearest
+        fitted inputs through the fitted neighbor structure, receives
+        perplexity-calibrated similarities over them, and descends
+        (attractive-only, momentum + gains, per-point early stop) against
+        their frozen embedding coordinates, starting from their p-weighted
+        mean.
+
+        Returns ``y [M, 2]`` (and per-point ``TransformStats`` when
+        ``return_stats=True``).
+        """
+        from repro_torch.embed.transform import TransformConfig, transform_batch
+
+        self._check_fitted()
+        x_new = np.asarray(x_new, np.float32)
+        if x_new.ndim != 2 or x_new.shape[1] != self.n_features_in_:
+            raise ValueError(f"expected x_new shaped [m, {self.n_features_in_}], got "
+                             f"{x_new.shape}")
+        cfg = transform_config or TransformConfig()
+        perp = cfg.perplexity if cfg.perplexity is not None else self.perplexity
+        y, stats = transform_batch(
+            torch.as_tensor(x_new).to(self.device), self.query_index_,
+            torch.as_tensor(np.asarray(self.embedding_, np.float32)).to(self.device),
+            k=self.query_k_, perplexity=float(perp), config=cfg)
+        return (y, stats) if return_stats else y
+
+    # -- persistence --------------------------------------------------------
+
+    # the reference's npz schema: a file either package writes, the other reads
+    _SAVE_SCHEMA = 1
+
+    def save(self, path) -> None:
+        """Persist the fitted state (npz, ``repro.api.TSNE``'s schema):
+        embedding, fitted inputs, sparse-P neighbor graph and constructor
+        parameters, enough for ``load`` to serve ``transform``.  The
+        parameters carry ``trace: null`` and no ``device``, so
+        ``repro.api.TSNE.load`` reads the file too."""
+        self._check_fitted()
+        params = self.get_params()
+        params.pop("callbacks", None)       # not serializable, fit-only
+        params.pop("device")                # where to run is the loader's choice
+        params["trace"] = None
+        if not isinstance(params["method"], str):
+            params["method"] = getattr(params["method"], "name", "barnes_hut")
+        arrays = dict(
+            schema=np.int32(self._SAVE_SCHEMA),
+            embedding=np.asarray(self.embedding_, np.float32),
+            x_fit=np.asarray(self._x_fit, np.float32),
+            kl_divergence=np.float64(self.kl_divergence_),
+            kl_history=np.asarray(self.kl_history_, np.float64),
+            n_iter_run=np.int32(self.n_iter_),
+            learning_rate=np.float64(self.learning_rate_),
+            n_neighbors_fit=np.int32(self.n_neighbors_),
+            params_json=np.array(json.dumps(params)),
+        )
+        g = getattr(self, "neighbor_graph_", None)
+        if g is not None:
+            arrays.update(
+                graph_p_cols=g.p_cols.cpu().numpy().astype(np.int32),
+                graph_p_vals=g.p_vals.cpu().numpy().astype(np.float32),
+                graph_edge_src=g.edge_src.cpu().numpy().astype(np.int32),
+                graph_edge_dst=g.edge_dst.cpu().numpy().astype(np.int32),
+                graph_edge_w=g.edge_w.cpu().numpy().astype(np.float32),
+                graph_p_logp=np.float64(g.p_logp),
+                graph_has_edges=np.bool_(g.has_edges),
+            )
+        np.savez_compressed(path, **arrays)
+
+    @classmethod
+    def load(cls, path, device=None) -> "TSNE":
+        """Rebuild a fitted estimator saved by :meth:`save` or by
+        ``repro.api.TSNE.save``, on ``device`` (``None`` = cuda); the query
+        index is rebuilt lazily on the first ``transform``.
+
+        ``timings_`` is ``None``: no phase ran in this process.  A file
+        saved with tracing on (``trace`` not null) is refused: the port has
+        no tracer yet.
+        """
+        from repro_torch.convert import graph_from_numpy
+
+        z = np.load(path, allow_pickle=False)
+        if int(z["schema"]) != cls._SAVE_SCHEMA:
+            raise ValueError(f"unsupported TSNE save schema {int(z['schema'])} "
+                             f"(expected {cls._SAVE_SCHEMA})")
+        params = json.loads(str(z["params_json"]))
+        trace = params.pop("trace", None)
+        if trace is not None:
+            raise ValueError(f"the saved model has trace={trace!r}; repro_torch has no "
+                             "tracer yet, so it loads only models saved with trace=None")
+        est = cls(**params, device=device)
+        est.embedding_ = np.asarray(z["embedding"])
+        est._x_fit = np.asarray(z["x_fit"])
+        est.kl_divergence_ = float(z["kl_divergence"])
+        est.kl_history_ = np.asarray(z["kl_history"])
+        est.n_iter_ = int(z["n_iter_run"])
+        est.learning_rate_ = float(z["learning_rate"])
+        est.n_neighbors_ = int(z["n_neighbors_fit"])
+        est.n_features_in_ = est._x_fit.shape[1]
+        est.timings_ = None         # loaded, not fitted here: no phase ran
+        est._query_index = None
+        if "graph_p_cols" in z.files:
+            has_edges = bool(z["graph_has_edges"])
+            edges = (z["graph_edge_src"], z["graph_edge_dst"], z["graph_edge_w"]) \
+                if has_edges else None
+            est.neighbor_graph_ = graph_from_numpy(
+                z["graph_p_cols"], z["graph_p_vals"], float(z["graph_p_logp"]),
+                n=est._x_fit.shape[0], edges=edges, device=est.device)
+        else:
+            est.neighbor_graph_ = None
+        return est

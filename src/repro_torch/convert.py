@@ -1,9 +1,9 @@
 """The state that crosses between ``repro`` and ``repro_torch``, from numpy.
 
 t-SNE has no weights.  What one package's run hands the other is the
-fitted sparse input-similarity graph and the descent state; both cross as
-numpy arrays (never framework objects), so this module needs nothing of
-the JAX package.
+fitted sparse input-similarity graph, the descent state and a fitted
+random-projection forest; they cross as numpy arrays (never framework
+objects), so this module needs nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.similarity import ell_row_lengths
 from repro_torch.core.tsne import NeighborGraph, TsneState
 from repro_torch.device import resolve_device
+from repro_torch.neighbors.rp_forest import RPForestIndex
 
 
 def graph_from_numpy(p_cols, p_vals, p_logp, n: int | None = None, *,
@@ -51,3 +52,16 @@ def state_from_numpy(y, velocity=None, gains=None, iteration: int = 0, *,
     gn = torch.ones_like(y_t) if gains is None \
         else torch.tensor(np.asarray(gains), device=dev).to(dtype)
     return TsneState(y=y_t, velocity=vel, gains=gn, iteration=int(np.asarray(iteration)))
+
+
+def forest_index_from_numpy(x_ref, leaves, dirs, thrs, *, device=None) -> RPForestIndex:
+    """An :class:`RPForestIndex` from a forest held as numpy arrays:
+    reference points ``x_ref [N, D]``, ``leaves [T, 2^depth, leaf_size]``,
+    hyperplanes ``dirs [T, depth, D]`` and ``thrs`` (level l: ``[T, 2^l]``),
+    as ``repro.neighbors.rp_forest.build_forest_index`` returns them."""
+    dev = resolve_device(device)
+    return RPForestIndex(
+        x_ref=torch.tensor(np.asarray(x_ref, np.float32), device=dev),
+        leaves=torch.tensor(np.asarray(leaves, np.int64), device=dev),
+        dirs=torch.tensor(np.asarray(dirs, np.float32), device=dev),
+        thrs=tuple(torch.tensor(np.asarray(t, np.float32), device=dev) for t in thrs))

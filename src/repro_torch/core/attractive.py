@@ -1,7 +1,9 @@
 """Attractive force (paper §3.6, Algorithm 2): port of ``repro/core/attractive.py``.
 
 ``attractive_forces_ell`` is the plain twin of the CUDA kernel
-``csrc/attractive.cu`` (registry name ``attractive_ell``).  The reference's
+``csrc/attractive.cu`` (registry name ``attractive_ell``).
+``attractive_forces_frozen`` is the out-of-sample step's force, plain
+PyTorch as the reference's is plain XLA.  The reference's
 three ELL layouts (``ell``, ``components``, ``blocked``) differ only in how
 they use a CPU's or TPU's caches; in the port they all name the one
 attractive kernel (:func:`ell_forces`).  ``attractive_forces_edges`` is
@@ -53,6 +55,25 @@ def ell_forces(attractive_impl: str):
         )
     from repro_torch.kernels import ops     # lazy: ops imports this module
     return ops.attractive_ell
+
+
+def attractive_forces_frozen(y: torch.Tensor, nbr_y: torch.Tensor, p: torch.Tensor):
+    """Attractive force of free points against frozen neighbor coordinates
+    (the out-of-sample ``transform``).
+
+    Each new point ``y [M, 2]`` descends toward its k nearest fitted points,
+    whose embedding coordinates ``nbr_y [M, K, 2]`` never move, with
+    row-normalized similarities ``p [M, K]`` (padding: 0).  Rows are
+    independent.
+
+    Returns (force [M, 2], kl_attr [M]: each point's sum p log(1 + d^2)).
+    """
+    diff = y[:, None, :] - nbr_y
+    d2 = torch.sum(diff * diff, dim=-1)
+    pq = p / (1.0 + d2)
+    force = torch.sum(pq[..., None] * diff, dim=1)
+    kl_attr = torch.sum(p * torch.log1p(d2), dim=1)
+    return force, kl_attr
 
 
 def attractive_forces_edges(y: torch.Tensor, src: torch.Tensor,

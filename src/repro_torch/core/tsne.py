@@ -102,6 +102,8 @@ class TsneConfig:
         if self.neighbor_method == "exact":
             opts.setdefault("block_q", self.knn_block_q)
             opts.setdefault("block_db", self.knn_block_db)
+        elif self.neighbor_method in ("rp_forest", "nn_descent"):
+            opts.setdefault("seed", self.seed)
         return opts
 
     def resolve_chunk_size(self, n: int) -> int | None:

@@ -18,12 +18,54 @@ import torch
 class NeighborBackend(Protocol):
     """``neighbors(x, k)`` maps points ``x [N, D]`` to ``(idx [N, k] int32,
     d2 [N, k])``: k distinct neighbors of each row point (self excluded)
-    with their squared euclidean distances, on ``x``'s device."""
+    with their squared euclidean distances, on ``x``'s device.
+
+    Backends that answer out-of-sample queries also implement
+    ``build_index(x) -> NeighborIndex`` (see :func:`build_query_index`).
+    """
 
     name: str
 
     def neighbors(self, x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         ...
+
+
+@runtime_checkable
+class NeighborIndex(Protocol):
+    """A fitted reference set that answers out-of-sample KNN queries.
+
+    ``query(x_new, k)`` maps query points ``x_new [M, D]`` (not members of
+    the reference set) to ``(idx [M, k] int32, d2 [M, k])``: reference-set
+    indices of the k nearest fitted points of each query, ascending by
+    distance, with exact squared distances.  There is no self-exclusion.
+    ``n_reference`` is the fitted set's size.
+    """
+
+    n_reference: int
+
+    def query(self, x_new: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        ...
+
+
+def build_query_index(backend: NeighborBackend, x: torch.Tensor) -> NeighborIndex:
+    """Fit ``backend``'s query index over reference points ``x``.
+
+    Backends without a ``build_index`` method (custom registrations, for
+    example) fall back to the exact blocked scan.
+    """
+    builder = getattr(backend, "build_index", None)
+    if builder is not None:
+        return builder(x)
+    from repro_torch.neighbors.exact import ExactNeighbors  # lazy: exact builds on base
+    return ExactNeighbors().build_index(x)
+
+
+def validate_query_k(n_reference: int, k: int) -> None:
+    """Query (n, k) precondition: 1 <= k <= reference-set size."""
+    if k < 1:
+        raise ValueError(f"k={k} must be >= 1")
+    if k > n_reference:
+        raise ValueError(f"k={k} must be <= reference-set size n={n_reference}")
 
 
 def recall_at_k(ref_idx, idx) -> float:

@@ -115,7 +115,7 @@ def test_neighbor_registry():
     with pytest.raises(ValueError, match="k=50 must be < n=50"):
         nb.neighbors(x, 50)
     with pytest.raises(ValueError, match="unknown neighbor method"):
-        make_neighbor_backend("rp_forest")
+        make_neighbor_backend("sharded")      # comes with the multi-device port
 
 
 # -------------------------------------------------------------- symmetrize --
