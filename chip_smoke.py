@@ -19,17 +19,19 @@ result line):
                and the kernel's device time from a torch.profiler trace.
                pairwise is also checked on ragged tiles (the main path's
                last block and chunk), on rows at no 16-byte boundary and
-               at D = 781, and by the KNN of 4 096 queries from its tiles
-               against the KNN from the plain tiles; the KNN of 100 rows
+               at D = 781, at 1, 2 and 3 query rows (an embedding-service
+               admission's) against a full 8 192-row chunk and the train
+               split's ragged last chunk, and by the KNN of 4 096 queries
+               from its tiles against the KNN from the plain tiles; the KNN of 100 rows
                five times each on the card must give the plain CPU KNN's
                indices (equal distances in index order); attractive with the
                rows' real lengths (p_len, as the fits call it) and over
                the full width W, both timed.  bsp is also checked on
                4 096 rows at every K where ops.bsp_plan changes its
                choice (1 .. 1024), rows of all-equal distances and of
-               zeros among them, and the chunked search must repeat the
-               whole one bit for bit; its bound counts the SFU's
-               exponentials.
+               zeros among them, at 1 and 3 rows (K = 90, an admission's),
+               and the chunked search must repeat the whole one bit for
+               bit; its bound counts the SFU's exponentials.
                The FFT path's spread and gather are also checked at
                128 boxes and exactly on planted lattice-node points, boxes
                overhanging the lattice's edges included; both are checked
@@ -57,7 +59,12 @@ result line):
                1 000 descent steps (250 exaggerated); pairwise and bsp
                must be > 0, morton, attractive and bh_traverse launched
                once a step, every attractive launch must carry p_len, and
-               the embedding and KL must be finite.  Then bh_traverse at
+               the embedding and KL must be finite.  The fit is traced
+               (trace= a path under build/): its spans fit, knn, bsp,
+               symmetrize, gradient_descent (the four children of fit),
+               early_exaggeration, main_phase and checkpoint; timings_ the
+               spans' durations; a Chrome trace that json.load reads; the
+               fit.iterations metric n_iter_.  Then bh_traverse at
                the fitted embedding: checked bit for bit as in 3 and timed
                (its kernels-line row).
 6. breakdown -- one Barnes-Hut step at the fitted embedding, stage by
@@ -70,10 +77,10 @@ result line):
 7. fft fit  -- the same fit with method="fft" (48 boxes a dimension),
                also 1 000 steps (250 exaggerated); pairwise, bsp,
                attractive, fft_spread and fft_gather must be > 0, with
-               spread = gather = attractive = steps run.  A second descent
-               from the fit's graph and initial embedding
-               (core.tsne.descend, the loop run_tsne runs) must give a
-               bit-identical embedding and KL.
+               spread = gather = attractive = steps run; traced and
+               checked as in 5.  A second, untraced descent from the fit's
+               graph and initial embedding (core.tsne.descend, the loop
+               run_tsne runs) must give a bit-identical embedding and KL.
 8. fft breakdown -- one FFT step at its fitted embedding, stage by stage
                (coords, spread, convolution, gather, attractive, update)
                through the functions fft_repulsion calls, held against
@@ -107,8 +114,28 @@ result line):
                baseline - 0.05; 256 rows on the card against the CPU
                through the same exact index (the tolerance in the
                phase); save then load must serve the same transform.
+12. service  -- EmbeddingService(slots=64, max_k=96) on the card, caching
+               10's two fits as "mnist_forest" (its forest index) and
+               "mnist_exact" (the exact-graph fit, whose ExactIndex runs
+               pairwise tiles), traced; 2 048 held-out rows submitted to
+               each, alternating, and drained with run(): every request
+               done and finite; completed 4 096, slot occupancy up to 64,
+               queue depth >= 1, both gauges 0 at the end; the
+               transform_step probe grown by exactly 1 (the [64, 96]
+               step); bsp_search launched once an admission, pairwise 8
+               tiles an exact admission and none for a forest one.  Each
+               model's results against its TSNE.transform of the same rows,
+               and 256 requests on a CPU service against the card's
+               (median |dy| <= 1e-5 x span, >= 98% of rows within 1e-3 x
+               span).  Prints requests/s, latency p50/p95/p99, steps, ticks
+               and the service.admit / service.tick span totals; then runs
+               python -m repro_torch.embed.service --smoke --trace
+               build/service_trace.json, which must exit 0 and write a
+               trace that loads.
 
-Every kernel must be launched by at least one of the two fits.
+Every kernel must be launched by at least one of the two fits.  Each
+driven path (the two fits and the service) has its launch counts set to
+0 just before it and read just after.
 
 The line before the last is the kernels JSON object; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -117,6 +144,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -134,6 +162,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_SFU_OPS = 132 * 16 * 1.98e9
+
+ROOT = Path(__file__).resolve().parent
+BUILD = ROOT / "build"
 
 # Main-path KNN blocks: larger than the JAX defaults (512 x 2048), which
 # were sized for TPU VMEM; a [4096, 8192] fp32 tile is 128 MiB on the card.
@@ -468,6 +499,13 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
                    flat[5003 * d + 3:5003 * d + 3 + 3001 * d].view(3001, d))
     x781 = x[:, :781].contiguous()
     check_pairwise("D = 781", x781[1:1001], x781[5003:8004])
+    # an admission's tiles: 1-3 held-out query rows against a full chunk
+    # and the ragged last chunk of the train split
+    last = TRAIN_ROWS // KNN_BLOCK_DB * KNN_BLOCK_DB
+    for m in (1, 2, 3):
+        qm = x[TRAIN_ROWS:TRAIN_ROWS + m]
+        check_pairwise(f"{m} query rows, full chunk", qm, x[:KNN_BLOCK_DB])
+        check_pairwise(f"{m} query rows, ragged last chunk", qm, x[last:TRAIN_ROWS])
     check_knn(x, k)
     nq, nc = q.shape[0], c.shape[0]
     log(f"pairwise yardstick: q @ c.T (cuBLAS fp32 product alone) "
@@ -493,6 +531,10 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     if not (torch.equal(p_c, p_k) and torch.equal(b_c, b_k)):
         fail("bsp_search in chunks of 10 007 rows differs from the whole search")
     check_bsp_plans(torch.Generator(device="cpu").manual_seed(15), dev)
+    # an admission's search: one row (and three), K = 90
+    for rows_ in (d2[:1], d2[5:8]):
+        check_bsp(f"[{rows_.shape[0]}, {k}]", *ops.bsp_search(rows_, perplexity),
+                  *bsp.binary_search_perplexity_plain(rows_, perplexity))
     nk = d2.numel()
     fp32_ms, _ = bound(65.0 * 6.0 * nk, 0.0)
     row("bsp_search", float((p_k - p_p).abs().max()),
@@ -733,24 +775,39 @@ def phase_gradient(x: torch.Tensor) -> None:
             fail(f"small {method} fit on the card disagrees with the CPU fit")
 
 
+# PR 17's untraced fits of the same configuration (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md section 5), printed beside the traced ones
+PR17_FITS = {
+    "barnes_hut": dict(knn=0.389, symmetrize=3.558, gradient_descent=10.54, kl=3.5966),
+    "fft": dict(knn=0.390, symmetrize=4.173, gradient_descent=2.177, kl=3.762970),
+}
+FIT_PHASES = ("knn", "bsp", "symmetrize", "gradient_descent")
+
+
 def phase_fit(x_np: np.ndarray, method: str, n_iter: int, exag_iters: int,
               kl_every: int, neighbor_method: str = "exact",
-              neighbor_options: dict | None = None, label: str | None = None):
+              neighbor_options: dict | None = None, label: str | None = None,
+              trace: bool = False):
     """One fit through the estimator, every launch count reset before it
     and read after it; ``label`` names it in the log (default: ``method``).
-    Returns (estimator, launches)."""
+    ``trace`` fits with ``trace=`` a Chrome-trace path under build/ and
+    checks the spans (check_trace).  Returns (estimator, launches)."""
     from repro_torch.api import TSNE
     from repro_torch.kernels import ops
 
     stats = []
     name = label or method
+    trace_path = BUILD / f"fit_trace_{name}.json" if trace else None
+    if trace_path is not None:
+        BUILD.mkdir(exist_ok=True)
     est = TSNE(method=method, neighbor_method=neighbor_method,
                neighbor_options=neighbor_options, perplexity=30,
                random_state=0, n_iter=n_iter, kl_every=kl_every, verbose=1,
                callbacks=[stats.append],
                backend_options=dict(knn_block_q=KNN_BLOCK_Q, knn_block_db=KNN_BLOCK_DB,
                                     exaggeration_iters=exag_iters,
-                                    momentum_switch_iter=exag_iters))
+                                    momentum_switch_iter=exag_iters),
+               trace=None if trace_path is None else str(trace_path))
     # every attractive launch of the fit must carry the rows' real lengths
     with_len = []
     launch_attractive = ops.attractive_ell_cuda
@@ -774,8 +831,8 @@ def phase_fit(x_np: np.ndarray, method: str, n_iter: int, exag_iters: int,
     if not all(with_len):
         fail(f"the {name} fit launched attractive_ell without p_len")
     t = est.timings_
-    log(f"{name} fit phases (s): " + json.dumps(
-        {k: t[k] for k in ("knn", "bsp", "symmetrize", "gradient_descent")}))
+    log(f"{name} fit phases (s){', traced' if trace else ''}: " + json.dumps(
+        {k: t[k] for k in FIT_PHASES}))
     log(f"{name} fit: wall {wall:.2f} s, {t['gradient_descent'] / est.n_iter_:.6f} s "
         f"per descent step over {est.n_iter_} steps")
     log(f"{name} fit KL checkpoints: " + json.dumps(
@@ -787,7 +844,47 @@ def phase_fit(x_np: np.ndarray, method: str, n_iter: int, exag_iters: int,
         fail(f"{name}: embedding not finite or of wrong shape {emb.shape}")
     if not np.isfinite(est.kl_divergence_):
         fail(f"{name}: final KL is not finite")
+    if trace_path is not None:
+        check_trace(name, est, trace_path, exag_iters)
     return est, launches
+
+
+def check_trace(name: str, est, path: Path, exag_iters: int) -> None:
+    """A traced fit's spans: fit, knn, bsp, symmetrize and gradient_descent
+    (the four phases children of fit), early_exaggeration, main_phase
+    (when the fit ran past the exaggeration) and checkpoint; timings_ the
+    spans' durations; the Chrome trace at ``path`` loadable with those
+    events; fit.iterations = n_iter_.  Prints the timings beside PR 17's
+    untraced fit of the same configuration."""
+    tr = est.tracer_
+    want = {"fit", *FIT_PHASES, "early_exaggeration", "checkpoint"}
+    if est.n_iter_ > exag_iters:
+        want.add("main_phase")
+    missing = want - {s.name for s in tr.spans}
+    if missing:
+        fail(f"the traced {name} fit has no span {sorted(missing)}")
+    fit = tr.last("fit")
+    if any(tr.last(p).parent != fit.index for p in FIT_PHASES):
+        fail(f"the traced {name} fit's phase spans are not children of fit")
+    d = tr.durations()
+    if any(est.timings_[p] != d[p] for p in FIT_PHASES):
+        fail(f"the traced {name} fit's timings_ are not its spans' durations")
+    with open(path) as f:
+        events = {e["name"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"}
+    if not want <= events:
+        fail(f"the {name} fit's Chrome trace lacks {sorted(want - events)}")
+    snap = est.metrics_.snapshot()
+    if snap["fit.iterations"] != est.n_iter_:
+        fail(f"the traced {name} fit counted {snap['fit.iterations']} iterations, ran "
+             f"{est.n_iter_}")
+    log(f"{name} fit traced: {len(tr.spans)} spans ({len(tr.find('checkpoint'))} "
+        f"checkpoints) written to {path.name}; timings_ = span durations; "
+        f"fit.iterations {snap['fit.iterations']}; fit span {d['fit']:.3f} s")
+    ref = PR17_FITS.get(name)
+    if ref is not None:
+        log(f"{name} fit traced against PR 17's untraced (s): " + json.dumps(
+            {p: [est.timings_[p], ref[p]] for p in ("knn", "symmetrize", "gradient_descent")})
+            + f"; KL {est.kl_divergence_:.6f} against {ref['kl']}")
 
 
 def check_launches(method: str, launches: dict, needed: tuple, per_step: tuple,
@@ -1336,6 +1433,184 @@ def phase_transform(est, x_np: np.ndarray, labels: np.ndarray) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The embedding service
+# ---------------------------------------------------------------------------
+
+SERVICE_ROWS = 2048         # held-out rows submitted to each of the two models
+SERVICE_CPU_ROWS = 256      # requests replayed on a CPU service
+
+
+def service_bars(what: str, y: np.ndarray, y_ref: np.ndarray, span: float) -> dict:
+    """Phase 11's distribution bars between two placements of the same
+    rows: median |dy| <= 1e-5 x span, >= 98% of rows within 1e-3 x span
+    (rows that stop at the step cap on a ridge between two basins move far
+    under last-bit differences, so no per-row bound holds; PERF.md)."""
+    dy = np.abs(y - y_ref).max(1)
+    out = dict(median_dy=float(np.median(dy)), max_dy=float(dy.max()),
+               rows_over=int((dy > 1e-3 * span).sum()), rows=int(dy.shape[0]), span=span)
+    log(f"service {what}: {dy.shape[0]} rows, median |dy| {out['median_dy']:.3e} "
+        f"(<= 1e-5 x span {span:.3f}), max {out['max_dy']:.3e}, {out['rows_over']} rows "
+        "over 1e-3 x span (<= 2%)")
+    if not (out["median_dy"] <= 1e-5 * span and (dy > 1e-3 * span).mean() <= 0.02):
+        fail(f"the service's placements disagree ({what})")
+    return out
+
+
+def run_service(service, models: dict, rows: np.ndarray) -> tuple[list, float]:
+    """Submit every row to each model in turn (request ids 0, 1, ... in that
+    order) and drain with run(): (requests in id order, seconds)."""
+    from repro_torch.embed import TransformRequest
+    reqs = [TransformRequest(rid=len(models) * i + j, dataset=name, x=xi)
+            for i, xi in enumerate(rows) for j, name in enumerate(models)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        service.submit(r)
+    done = service.run()
+    secs = time.perf_counter() - t0
+    if sorted(r.rid for r in done) != list(range(len(reqs))):
+        fail(f"the service completed {len(done)} of {len(reqs)} requests")
+    return reqs, secs
+
+
+def phase_service(est_forest, est_exact, x_np: np.ndarray) -> dict:
+    """EmbeddingService(slots=64, max_k=96) on the card over phase 10's two
+    fits; see the module docstring (phase 12)."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.api import TSNE
+    from repro_torch.convert import forest_index_from_numpy
+    from repro_torch.embed import EmbeddingService
+    from repro_torch.embed.transform import RETRACE_PROBE
+    from repro_torch.kernels import ops
+
+    models = {"mnist_forest": est_forest, "mnist_exact": est_exact}
+    rows = x_np[TRAIN_ROWS:TRAIN_ROWS + SERVICE_ROWS]
+    for est in models.values():
+        est.query_index_             # built before the run, not on a request's clock
+    tracer = obs.Tracer()
+    service = EmbeddingService(slots=64, max_k=96, tracer=tracer)
+    for name, est in models.items():
+        service.add_model(name, est)
+    # pairwise launches by each model's admissions
+    pairwise_by = dict.fromkeys(models, 0)
+    admit = service._admit
+
+    def counted_admit(slot, req):
+        before = ops.LAUNCHES["pairwise_sq_dists"]
+        admit(slot, req)
+        pairwise_by[req.dataset] += ops.LAUNCHES["pairwise_sq_dists"] - before
+
+    service._admit = counted_admit
+    probe_before = RETRACE_PROBE.count
+    ops.reset_launch_counts()
+    reqs, secs = run_service(service, models, rows)
+    launches = dict(ops.LAUNCHES)
+    n_req = len(reqs)
+    s = service.stats()
+    spans = tracer.durations()
+    index = est_exact.query_index_
+    tiles = -(-TRAIN_ROWS // index.block_db) * -(-1 // index.block_q)
+    out = dict(requests=n_req, seconds=secs, requests_per_s=n_req / secs,
+               latency_s_p50=s["latency_s_p50"], latency_s_p95=s["latency_s_p95"],
+               latency_s_p99=s["latency_s_p99"], latency_s_max=s["latency_s_max"],
+               steps_mean=s["steps_mean"], steps_max=s["steps_max"], ticks=s["ticks"],
+               admit_s=spans.get("service.admit", 0.0), tick_s=spans.get("service.tick", 0.0),
+               launches={k: v for k, v in launches.items() if v},
+               pairwise_by_model=pairwise_by, tiles_per_exact_admission=tiles,
+               transform_step_shapes_added=RETRACE_PROBE.count - probe_before)
+    log(f"service: {n_req} requests ({SERVICE_ROWS} rows x 2 models, 64 slots, max_k 96) in "
+        f"{secs:.3f} s: {out['requests_per_s']:.1f} requests/s; latency p50/p95/p99 "
+        f"{s['latency_s_p50']:.4f} / {s['latency_s_p95']:.4f} / {s['latency_s_p99']:.4f} s "
+        f"(max {s['latency_s_max']:.4f}; every request queued at once); steps mean "
+        f"{s['steps_mean']:.2f} (max {s['steps_max']}); {s['ticks']} ticks")
+    admit_by = {name: sum(sp.duration_s for sp in tracer.find("service.admit")
+                          if sp.attrs["dataset"] == name) for name in models}
+    out["admit_s_by_model"] = admit_by
+    log(f"service spans: service.admit {out['admit_s']:.3f} s over "
+        f"{len(tracer.find('service.admit'))} admissions "
+        f"({out['admit_s'] / n_req * 1e3:.3f} ms each; by model "
+        + ", ".join(f"{k} {v:.3f} s, {v / SERVICE_ROWS * 1e3:.3f} ms each"
+                    for k, v in admit_by.items())
+        + f"), service.tick {out['tick_s']:.3f} s over {s['ticks']} ticks "
+        f"({out['tick_s'] / s['ticks'] * 1e3:.3f} ms each); "
+        f"{secs - out['admit_s'] - out['tick_s']:.3f} s outside both")
+    log(f"service launches: {json.dumps(out['launches'])}; pairwise by model "
+        f"{json.dumps(pairwise_by)} ({tiles} tiles an exact admission, blocks "
+        f"{index.block_q} x {index.block_db}); transform_step shapes added "
+        f"{out['transform_step_shapes_added']}")
+    if not all(r.done and r.y is not None and np.isfinite(r.y).all() for r in reqs):
+        fail("a service request finished without a finite result")
+    m = service.metrics
+    if s["completed"] != n_req or s["slot_occupancy_max"] != 64 or \
+            s["queue_depth_max"] < 1 or m.gauge("service.queue_depth").value != 0 or \
+            m.gauge("service.slot_occupancy").value != 0:
+        fail(f"the service's telemetry is off: {json.dumps(s)}")
+    if out["transform_step_shapes_added"] != 1:
+        fail(f"the service added {out['transform_step_shapes_added']} transform_step "
+             "shapes, not one ([64, 96])")
+    if launches["bsp_search"] != n_req or pairwise_by["mnist_forest"] != 0 or \
+            pairwise_by["mnist_exact"] != tiles * SERVICE_ROWS:
+        fail(f"the admissions launched bsp {launches['bsp_search']} times (want {n_req}) "
+             f"and pairwise {json.dumps(pairwise_by)} (want 0 and {tiles * SERVICE_ROWS})")
+
+    # each model's placements against its batch transform of the same rows
+    t0 = time.perf_counter()
+    for j, (name, est) in enumerate(models.items()):
+        y_srv = np.stack([r.y for r in reqs[j::len(models)]])
+        out[f"vs_transform_{name}"] = service_bars(
+            f"{name} against TSNE.transform", y_srv, est.transform(rows),
+            float(np.ptp(est.embedding_)))
+
+    log(f"service: the two batch transforms and their comparison took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the first SERVICE_CPU_ROWS requests on a CPU service: the same models
+    # saved and loaded on the CPU, the forest model given the card's forest
+    t0 = time.perf_counter()
+    cpu_models = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, est in models.items():
+            est.save(Path(tmp) / f"{name}.npz")
+            cpu_models[name] = TSNE.load(Path(tmp) / f"{name}.npz", device="cpu")
+    f = est_forest.query_index_
+    cpu_models["mnist_forest"]._query_index = forest_index_from_numpy(
+        f.x_ref.cpu().numpy(), f.leaves.cpu().numpy(), f.dirs.cpu().numpy(),
+        [t.cpu().numpy() for t in f.thrs], device="cpu")
+    cpu_service = EmbeddingService(slots=64, max_k=96, device="cpu")
+    for name, est in cpu_models.items():
+        cpu_service.add_model(name, est)
+    cpu_reqs, cpu_secs = run_service(cpu_service, cpu_models,
+                                     rows[:SERVICE_CPU_ROWS // len(models)])
+    log(f"service on the CPU: {len(cpu_reqs)} requests in {cpu_secs:.3f} s (save, load "
+        f"and run {time.perf_counter() - t0:.1f} s)")
+    for j, (name, est) in enumerate(models.items()):
+        out[f"card_vs_cpu_{name}"] = service_bars(
+            f"{name}, card against CPU",
+            np.stack([r.y for r in reqs[:SERVICE_CPU_ROWS][j::len(models)]]),
+            np.stack([r.y for r in cpu_reqs[j::len(models)]]), float(np.ptp(est.embedding_)))
+
+    # the smoke entry point, traced, as a user runs it
+    trace = BUILD / "service_trace.json"
+    BUILD.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.embed.service", "--smoke", "--trace", str(trace)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), capture_output=True,
+        text=True, timeout=600)
+    log(f"service smoke entry point: rc {proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+        f"{proc.stdout.strip()}")
+    if proc.returncode != 0:
+        fail(f"python -m repro_torch.embed.service --smoke failed:\n{proc.stderr[-4000:]}")
+    with open(trace) as fh:
+        names = {e["name"] for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"}
+    if not {"fit", "service.admit", "service.tick"} <= names:
+        fail(f"the smoke's trace lacks service spans: {sorted(names)}")
+    log("service summary: " + json.dumps(out))
+    return out
+
+
 BH_KERNELS = ("pairwise_sq_dists", "bsp_search", "morton_encode", "attractive_ell",
               "bh_traverse")
 FFT_KERNELS = ("pairwise_sq_dists", "bsp_search", "attractive_ell", "fft_spread",
@@ -1363,20 +1638,21 @@ def main() -> None:
     phase_gradient(x)
 
     fit_steps = (args.n_iter, args.exaggeration_iters, args.kl_every)
-    est, bh_launches = phase_fit(x_np, "barnes_hut", *fit_steps)
+    est, bh_launches = phase_fit(x_np, "barnes_hut", *fit_steps, trace=True)
     check_launches("barnes_hut", bh_launches, BH_KERNELS,
                    ("morton_encode", "attractive_ell", "bh_traverse"), est.n_iter_)
     rows.append(phase_traverse(est))
     phase_breakdown(est)
-    est, fft_launches = phase_fit(x_np, "fft", *fit_steps)
+    est, fft_launches = phase_fit(x_np, "fft", *fit_steps, trace=True)
     check_launches("fft", fft_launches, FFT_KERNELS,
                    ("attractive_ell", "fft_spread", "fft_gather"), est.n_iter_)
     check_reproducible(est)
     fft_breakdown = phase_fft_breakdown(est)
 
     phase_approx_knn(int(3 * perplexity))
-    est_rp, _ = phase_approx_fit(x_np, *fit_steps)
+    est_rp, est_ex = phase_approx_fit(x_np, *fit_steps)
     phase_transform(est_rp, x_np, labels)
+    service = phase_service(est_rp, est_ex, x_np)
 
     unlaunched = [k for k in ops.LAUNCHES if bh_launches[k] + fft_launches[k] == 0]
     if unlaunched:
@@ -1385,6 +1661,8 @@ def main() -> None:
         path = "barnes_hut" if r["name"] in BH_KERNELS else "fft"
         r["path"] = path
         r["launches"] = (bh_launches if path == "barnes_hut" else fft_launches)[r["name"]]
+        if r["name"] in ("pairwise_sq_dists", "bsp_search"):
+            r["service_launches"] = service["launches"].get(r["name"], 0)
         if r["name"] in ("fft_spread", "fft_gather"):
             r["fitted_device_ms"] = fft_breakdown[f"{r['name'][4:]}_device_ms"]
     print(json.dumps({"kernels": rows}))

@@ -3,7 +3,8 @@
 The layout mirrors ``repro``: ``core/`` (KNN, perplexity search,
 symmetrization, Morton/quadtree/summaries/traversal, forces, descent loop),
 ``kernels/`` (hand-written CUDA kernels for Hopper and their registry),
-``neighbors/``, ``api/`` and ``data/``.  Entry points run on ``cuda``
+``neighbors/``, ``embed/`` (transform and the embedding service),
+``obs/`` (spans, metrics, probes), ``api/``, ``launch/`` and ``data/``.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; a CUDA tensor always goes
 through the CUDA kernel and a CPU tensor through its plain PyTorch twin.
 """

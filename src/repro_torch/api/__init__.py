@@ -5,6 +5,7 @@
     emb = est.fit_transform(x)
     y_new = est.transform(x_new)                        # new points, no refit
     emb = TSNE(method="fft", device="cpu").fit_transform(x)   # FIt-SNE, CPU
+    est = TSNE(trace="fit_trace.json").fit(x)           # spans: est.tracer_
 """
 from repro_torch.core.tsne import (
     GradResult, IterationStats, NeighborGraph, ObserverFn, TsneConfig,
@@ -19,7 +20,8 @@ from repro_torch.neighbors import (
     NeighborBackend, NeighborIndex, available_neighbor_backends, build_query_index,
     make_neighbor_backend, register_neighbor_backend, unregister_neighbor_backend,
 )
-from repro_torch.embed import TransformConfig
+from repro_torch.embed import EmbeddingService, TransformConfig, TransformRequest
+from repro_torch.obs import MetricsRegistry, RecompileProbe, Tracer
 
 __all__ = [
     "TSNE",
@@ -28,7 +30,9 @@ __all__ = [
     "make_backend",
     "NeighborBackend", "NeighborIndex", "register_neighbor_backend",
     "unregister_neighbor_backend", "available_neighbor_backends",
-    "make_neighbor_backend", "build_query_index", "TransformConfig",
+    "make_neighbor_backend", "build_query_index",
+    "EmbeddingService", "TransformConfig", "TransformRequest",
+    "MetricsRegistry", "RecompileProbe", "Tracer",
     "GradResult", "IterationStats", "NeighborGraph", "ObserverFn",
     "TsneConfig", "TsneResult", "preprocess", "run_tsne",
 ]

@@ -1,6 +1,6 @@
 """scikit-learn-compatible ``TSNE`` estimator: port of ``repro/api/estimator.py``
-(``fit``, ``fit_transform``, the out-of-sample ``transform``, ``save`` and
-``load``; the reference's ``trace=`` comes with the observability port).
+(``fit``, ``fit_transform``, the out-of-sample ``transform``, ``save``,
+``load`` and the ``trace=`` switch of the observability layer).
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.backends import GradientBackend, make_backend
 from repro_torch.core.tsne import IterationStats, ObserverFn, TsneConfig, run_tsne
 from repro_torch.device import resolve_device
@@ -25,6 +26,14 @@ class TSNE:
     the plain PyTorch path.  ``backend_options`` overrides ``TsneConfig``
     fields (e.g. ``{"knn_block_q": 4096}``, ``{"exaggeration_iters": 50}``,
     ``{"fft_n_boxes": 96}``).
+
+    trace : bool, str or None
+        observability switch, as in the reference.  ``None`` (default)
+        defers to the process environment (``TSNE_TRACE=1`` enables the
+        global tracer); ``True`` records this estimator's fits and
+        transforms on a private tracer exposed as ``tracer_`` (with a
+        matching ``metrics_`` registry); a string also writes a Chrome
+        trace (Perfetto-loadable) to that path after each ``fit``.
     """
 
     def __init__(
@@ -46,6 +55,7 @@ class TSNE:
         n_neighbors: int | None = None,
         neighbor_method: str = "exact",
         neighbor_options: Mapping | None = None,
+        trace: bool | str | None = None,
         device=None,
     ):
         self.n_components = n_components
@@ -64,6 +74,7 @@ class TSNE:
         self.n_neighbors = n_neighbors
         self.neighbor_method = neighbor_method
         self.neighbor_options = dict(neighbor_options or {})
+        self.trace = trace
         self.device = resolve_device(device)
 
     # -- sklearn plumbing ---------------------------------------------------
@@ -86,6 +97,7 @@ class TSNE:
             "n_neighbors": self.n_neighbors,
             "neighbor_method": self.neighbor_method,
             "neighbor_options": self.neighbor_options,
+            "trace": self.trace,
             "device": self.device,
         }
 
@@ -97,6 +109,23 @@ class TSNE:
         return self
 
     # -- core ---------------------------------------------------------------
+
+    def _setup_obs(self) -> tuple:
+        """Resolve the ``trace`` knob into ``(tracer, metrics)`` for a run.
+
+        ``trace`` falsy: globals (enabled only under ``TSNE_TRACE``);
+        ``tracer_`` / ``metrics_`` point at them when active, else ``None``.
+        ``trace`` truthy: a fresh private tracer + registry per fit, kept on
+        the estimator so ``transform`` calls append to the same trace.
+        """
+        if not self.trace:
+            g = obs.get_tracer()
+            self.tracer_ = g if g.enabled else None
+            self.metrics_ = obs.get_metrics() if g.enabled else None
+            return None, None            # run_tsne falls back to the globals
+        self.tracer_ = obs.Tracer()
+        self.metrics_ = obs.MetricsRegistry()
+        return self.tracer_, self.metrics_
 
     def _build_config(self) -> TsneConfig:
         cfg = TsneConfig(
@@ -172,9 +201,12 @@ class TSNE:
             for fn in observers:
                 fn(stats)
 
+        tracer, metrics = self._setup_obs()
         result = run_tsne(x, config, observer=observer if observers else None,
                           kl_every=self.kl_every, backend=backend,
-                          device=self.device, y0=y0)
+                          device=self.device, y0=y0, tracer=tracer, metrics=metrics)
+        if isinstance(self.trace, str) and tracer is not None:
+            tracer.to_chrome_trace(self.trace, process_name="tsne.fit")
         self.embedding_ = result.y
         self.kl_divergence_ = result.kl
         self.kl_history_ = result.kl_history
@@ -250,7 +282,8 @@ class TSNE:
         y, stats = transform_batch(
             torch.as_tensor(x_new).to(self.device), self.query_index_,
             torch.as_tensor(np.asarray(self.embedding_, np.float32)).to(self.device),
-            k=self.query_k_, perplexity=float(perp), config=cfg)
+            k=self.query_k_, perplexity=float(perp), config=cfg,
+            tracer=getattr(self, "tracer_", None))
         return (y, stats) if return_stats else y
 
     # -- persistence --------------------------------------------------------
@@ -262,13 +295,12 @@ class TSNE:
         """Persist the fitted state (npz, ``repro.api.TSNE``'s schema):
         embedding, fitted inputs, sparse-P neighbor graph and constructor
         parameters, enough for ``load`` to serve ``transform``.  The
-        parameters carry ``trace: null`` and no ``device``, so
-        ``repro.api.TSNE.load`` reads the file too."""
+        parameters carry no ``device``, so ``repro.api.TSNE.load`` reads
+        the file too."""
         self._check_fitted()
         params = self.get_params()
         params.pop("callbacks", None)       # not serializable, fit-only
         params.pop("device")                # where to run is the loader's choice
-        params["trace"] = None
         if not isinstance(params["method"], str):
             params["method"] = getattr(params["method"], "name", "barnes_hut")
         arrays = dict(
@@ -301,9 +333,7 @@ class TSNE:
         ``repro.api.TSNE.save``, on ``device`` (``None`` = cuda); the query
         index is rebuilt lazily on the first ``transform``.
 
-        ``timings_`` is ``None``: no phase ran in this process.  A file
-        saved with tracing on (``trace`` not null) is refused: the port has
-        no tracer yet.
+        ``timings_`` is ``None``: no phase ran in this process.
         """
         from repro_torch.convert import graph_from_numpy
 
@@ -312,10 +342,6 @@ class TSNE:
             raise ValueError(f"unsupported TSNE save schema {int(z['schema'])} "
                              f"(expected {cls._SAVE_SCHEMA})")
         params = json.loads(str(z["params_json"]))
-        trace = params.pop("trace", None)
-        if trace is not None:
-            raise ValueError(f"the saved model has trace={trace!r}; repro_torch has no "
-                             "tracer yet, so it loads only models saved with trace=None")
         est = cls(**params, device=device)
         est.embedding_ = np.asarray(z["embedding"])
         est._x_fit = np.asarray(z["x_fit"])

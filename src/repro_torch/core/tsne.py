@@ -8,6 +8,10 @@ switching and per-dimension gains as in the reference.  PyTorch runs
 eagerly: there is no ``jit``, and the device is read only at the
 ``kl_every`` checkpoints.
 
+Observability, as in the reference: a fit is one ``fit`` span with
+``knn`` / ``bsp`` / ``symmetrize`` / ``gradient_descent`` children, and
+the timings dict holds those spans' durations (see :func:`run_tsne`).
+
 Device: :func:`run_tsne` takes an explicit ``device`` (``None`` = cuda).
 On a CUDA device the KNN tile, the perplexity search, the Morton codes,
 the Barnes-Hut traversal, the attractive forces and the FFT backend's
@@ -19,7 +23,6 @@ across, but none of them routes around a kernel.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Mapping, NamedTuple
@@ -27,10 +30,16 @@ from typing import Any, Callable, Mapping, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import attractive, bsp, morton, quadtree, similarity
 from repro_torch.core.summarize import summarize
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+
+# One count per distinct (embedding shape, backend, lr, min_gain) key of
+# the descent step, the reference's key; recorded on every call (the port
+# compiles nothing), read as ``recompiles.tsne_step`` in metric snapshots.
+TSNE_STEP_RETRACES = obs.RecompileProbe("tsne_step")
 
 DEFAULT_ATTRACTIVE_IMPL = "blocked"
 
@@ -218,6 +227,8 @@ class StepStats(NamedTuple):
 def tsne_step(state: TsneState, graph: NeighborGraph, exaggeration: float,
               momentum: float, *, backend, lr: float, min_gain: float):
     """One descent iteration: backend gradient + momentum/gains update."""
+    TSNE_STEP_RETRACES.record(tuple(state.y.shape), type(backend).__name__,
+                              getattr(backend, "name", ""), lr, min_gain)
     res = backend.gradient(state.y, graph, exaggeration)
     grad_norm = torch.linalg.norm(res.grad)
     new_state = gd_update(state, res.grad, lr, momentum, min_gain)
@@ -254,42 +265,41 @@ class IterationStats:
 ObserverFn = Callable[[IterationStats], None]
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def preprocess(x: torch.Tensor, config: TsneConfig,
+               tracer: obs.Tracer | None = None) -> tuple[NeighborGraph, dict]:
+    """KNN + BSP + symmetrization -> (NeighborGraph, stage timings), on x's device.
 
-
-@contextlib.contextmanager
-def _phase(timings: dict, name: str, device: torch.device):
-    """Seconds of one phase into ``timings[name]``, the device synchronised
-    at both ends so that queued kernels are charged to their phase."""
-    _sync(device)
-    t0 = time.perf_counter()
-    yield
-    _sync(device)
-    timings[name] = time.perf_counter() - t0
-
-
-def preprocess(x: torch.Tensor, config: TsneConfig) -> tuple[NeighborGraph, dict]:
-    """KNN + BSP + symmetrization -> (NeighborGraph, stage timings), on x's device."""
+    Each stage is a span on ``tracer`` (default: the process-global
+    tracer) whose exit synchronises the card on the stage's product, and
+    the per-stage seconds in the timings dict are those spans' durations:
+    one timing source for both the Chrome trace and ``timings_``.  When
+    the tracer is disabled a private always-on tracer times the three
+    stages (its spans are discarded with it).
+    """
     from repro_torch.neighbors import make_neighbor_backend   # lazy: builds on core
+    if tracer is None:
+        tracer = obs.get_tracer()
+    timer = tracer if tracer.enabled else obs.Tracer()
     dev = x.device
     n = int(x.shape[0])
     k = config.resolve_n_neighbors(n)
     nb = make_neighbor_backend(config.neighbor_method,
                                config.resolve_neighbor_options())
-    timings: dict = {}
-    with _phase(timings, "knn", dev):
+    with timer.span("knn", backend=nb.name, k=k, n=n) as sp_knn:
         idx, d2 = nb.neighbors(x.to(config.dtype), k)
+        sp_knn.sync((idx, d2))
 
     chunk = config.resolve_chunk_size(n)
-    with _phase(timings, "bsp", dev):
+    with timer.span("bsp", perplexity=config.perplexity, impl=config.bsp_impl,
+                    chunk_size=chunk) as sp_bsp:
         if chunk is not None:
             cond_p, _ = bsp.binary_search_perplexity_chunked(d2, config.perplexity, chunk)
         else:
             cond_p, _ = bsp.binary_search_perplexity(d2, config.perplexity)
+        sp_bsp.sync(cond_p)
 
-    with _phase(timings, "symmetrize", dev):
+    with timer.span("symmetrize", layout=config.attractive_impl,
+                    chunk_size=chunk) as sp_sym:
         if config.attractive_impl == "edges":
             # edge layout: only the directed edge list ships; the exact KL
             # constant comes from an ordered-pair dedup
@@ -329,10 +339,11 @@ def preprocess(x: torch.Tensor, config: TsneConfig) -> tuple[NeighborGraph, dict
             p_cols=p_cols, p_vals=p_vals, p_len=p_len, edge_src=src, edge_dst=dst, edge_w=w,
             p_logp=torch.tensor(p_logp, dtype=config.dtype, device=dev),
             n=n, has_edges=has_edges)
-    timings.update(neighbor_method=nb.name, n_neighbors=k,
-                   bsp_impl=config.bsp_impl, chunk_size=chunk,
-                   knn_mean_d2=float(torch.mean(d2)))
-    return graph, timings
+        sp_sym.sync(graph)
+    return graph, dict(
+        knn=sp_knn.duration_s, bsp=sp_bsp.duration_s, symmetrize=sp_sym.duration_s,
+        neighbor_method=nb.name, n_neighbors=k, bsp_impl=config.bsp_impl,
+        chunk_size=chunk, knn_mean_d2=float(torch.mean(d2)))
 
 
 def init_state(n: int, config: TsneConfig, device=None, y0=None) -> TsneState:
@@ -353,29 +364,52 @@ def init_state(n: int, config: TsneConfig, device=None, y0=None) -> TsneState:
 
 
 def run_tsne(x, config: TsneConfig = TsneConfig(), observer: ObserverFn | None = None,
-             kl_every: int = 50, backend=None, device=None, y0=None) -> TsneResult:
+             kl_every: int = 50, backend=None, device=None, y0=None,
+             tracer: obs.Tracer | None = None,
+             metrics: obs.MetricsRegistry | None = None) -> TsneResult:
     """Full t-SNE run through a pluggable gradient backend on ``device``.
 
     ``backend`` defaults to the registered backend named ``config.method``.
     ``observer`` gets :class:`IterationStats` every ``kl_every`` iterations
     (and on the final one); ``config.min_grad_norm`` stops the descent early
     at those checkpoints.  ``y0`` replaces the random initial embedding.
-    The timings dict holds per-phase seconds (knn, bsp, symmetrize,
-    gradient_descent), each measured with the device synchronised.
+
+    Observability: the run is one ``fit`` span with ``knn`` / ``bsp`` /
+    ``symmetrize`` / ``gradient_descent`` children (the descent splits
+    into ``early_exaggeration`` / ``main_phase``, with a zero-width
+    ``checkpoint`` span per KL read carrying kl / grad-norm / mean gain),
+    all on ``tracer``: default the process-global one, a no-op unless
+    enabled.  The returned ``timings`` dict is *derived from those spans*,
+    so the Chrome trace and ``timings_`` cannot disagree; a disabled
+    tracer leaves the timing to a private one.  Checkpoint stats also land
+    on ``metrics`` (default: the global registry) as ``fit.grad_norm`` /
+    ``fit.gain_mean`` histograms and ``fit.kl`` gauge, and the iterations
+    run on the ``fit.iterations`` counter.
     """
     dev = resolve_device(device)
     x = torch.as_tensor(np.asarray(x), dtype=config.dtype).to(dev)
     n = x.shape[0]
     lr = config.resolve_lr(n)
-    graph, timings = preprocess(x, config)
-    state = init_state(n, config, dev, y0)
-    if backend is None:
-        from repro_torch.api.backends import make_backend   # lazy: api builds on core
-        backend = make_backend(config.method, config, n)
+    if tracer is None:
+        tracer = obs.get_tracer()
+    if metrics is None:
+        metrics = obs.get_metrics()
+    timer = tracer if tracer.enabled else obs.Tracer()
 
-    with _phase(timings, "gradient_descent", dev):
-        state, kl, kl_hist, n_run = descend(state, graph, config, backend, lr,
-                                            observer, kl_every)
+    with timer.span("fit", n=int(n), method=config.method,
+                    neighbor_method=config.neighbor_method):
+        graph, timings = preprocess(x, config, tracer=timer)
+        state = init_state(n, config, dev, y0)
+        if backend is None:
+            from repro_torch.api.backends import make_backend   # lazy: api builds on core
+            backend = make_backend(config.method, config, n)
+        with timer.span("gradient_descent", n_iter=config.n_iter, lr=lr) as sp_gd:
+            state, kl, kl_hist, n_run = descend(state, graph, config, backend, lr,
+                                                observer, kl_every, tracer=tracer,
+                                                metrics=metrics)
+            sp_gd.sync(state.y)
+        timings["gradient_descent"] = sp_gd.duration_s
+        metrics.counter("fit.iterations").inc(n_run)
     return TsneResult(
         y=state.y.cpu().numpy(),
         kl=kl,
@@ -387,32 +421,72 @@ def run_tsne(x, config: TsneConfig = TsneConfig(), observer: ObserverFn | None =
 
 
 def descend(state: TsneState, graph: NeighborGraph, config: TsneConfig, backend,
-            lr: float, observer: ObserverFn | None = None, kl_every: int = 50):
+            lr: float, observer: ObserverFn | None = None, kl_every: int = 50,
+            tracer: obs.Tracer | None = None,
+            metrics: obs.MetricsRegistry | None = None):
     """The gradient descent of :func:`run_tsne` from ``state``: the
     exaggeration and momentum schedules of ``config``, KL read every
     ``kl_every`` iterations (and on the last), early stop on
     ``config.min_grad_norm`` there.  Returns (final state, last KL, KL
-    history [(iteration, KL)], iterations run)."""
+    history [(iteration, KL)], iterations run).
+
+    On an enabled ``tracer`` (default: the process-global one) the
+    descent opens ``early_exaggeration`` / ``main_phase`` spans, each
+    synchronised on ``state.y`` at its exit, and a ``checkpoint`` span per
+    KL read, whose mean gain is one more read from the device.  Disabled,
+    it reads back nothing but the checkpoints' KL and gradient norm.
+    Checkpoint stats go to ``metrics`` (default: the global registry).
+    """
+    if tracer is None:
+        tracer = obs.get_tracer()
+    if metrics is None:
+        metrics = obs.get_metrics()
     kl_hist = []
     kl = float("nan")
     it = 0
     t0 = time.perf_counter()
-    for it in range(config.n_iter):
-        exag = config.early_exaggeration if it < config.exaggeration_iters else 1.0
-        mom = config.momentum_initial if it < config.momentum_switch_iter \
-            else config.momentum_final
-        state, stats = tsne_step(state, graph, exag, mom, backend=backend,
-                                 lr=lr, min_gain=config.min_gain)
-        if (it + 1) % kl_every == 0 or it == config.n_iter - 1:
-            kl = float(stats.kl)
-            grad_norm = float(stats.grad_norm)
-            kl_hist.append((it + 1, kl))
-            if observer is not None:
-                observer(IterationStats(
-                    iteration=it + 1, kl=kl, grad_norm=grad_norm,
-                    z=float(stats.z), max_traversal=int(stats.max_traversal),
-                    exaggeration=exag, momentum=mom,
-                    elapsed_s=time.perf_counter() - t0))
-            if grad_norm < config.min_grad_norm:
-                break
+    phase_name = phase_ctx = phase_sp = None
+    try:
+        for it in range(config.n_iter):
+            exag = config.early_exaggeration if it < config.exaggeration_iters else 1.0
+            mom = config.momentum_initial if it < config.momentum_switch_iter \
+                else config.momentum_final
+            want = "early_exaggeration" if it < config.exaggeration_iters else "main_phase"
+            if tracer.enabled and want != phase_name:
+                if phase_ctx is not None:
+                    phase_sp.sync(state.y)
+                    phase_ctx.__exit__(None, None, None)
+                phase_ctx = tracer.span(want, start_iter=it, exaggeration=exag)
+                phase_sp = phase_ctx.__enter__()
+                phase_name = want
+            state, stats = tsne_step(state, graph, exag, mom, backend=backend,
+                                     lr=lr, min_gain=config.min_gain)
+            if (it + 1) % kl_every == 0 or it == config.n_iter - 1:
+                kl = float(stats.kl)
+                grad_norm = float(stats.grad_norm)
+                kl_hist.append((it + 1, kl))
+                metrics.histogram("fit.grad_norm").observe(grad_norm)
+                metrics.gauge("fit.kl").set(kl)
+                metrics.gauge("fit.exaggeration").set(exag)
+                if tracer.enabled:
+                    # trace-only extras (one more read from the device)
+                    gain_mean = float(torch.mean(state.gains))
+                    metrics.histogram("fit.gain_mean").observe(gain_mean)
+                    with tracer.span("checkpoint", iteration=it + 1, kl=kl,
+                                     grad_norm=grad_norm, z=float(stats.z),
+                                     exaggeration=exag, momentum=mom,
+                                     gain_mean=gain_mean):
+                        pass
+                if observer is not None:
+                    observer(IterationStats(
+                        iteration=it + 1, kl=kl, grad_norm=grad_norm,
+                        z=float(stats.z), max_traversal=int(stats.max_traversal),
+                        exaggeration=exag, momentum=mom,
+                        elapsed_s=time.perf_counter() - t0))
+                if grad_norm < config.min_grad_norm:
+                    break
+    finally:
+        if phase_ctx is not None:
+            phase_sp.sync(state.y)
+            phase_ctx.__exit__(None, None, None)
     return state, kl, kl_hist, it + 1

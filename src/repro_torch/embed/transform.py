@@ -13,7 +13,8 @@ new points.
 step has the same ``[B, K]`` shapes, as the reference's jitted step has.
 On the card the query's distance tiles (an exact index) go through the
 ``pairwise_sq_dists`` kernel and the perplexity search through
-``bsp_search``.
+``bsp_search``.  The :class:`~repro_torch.embed.service.EmbeddingService`
+calls the same step over its ``[slots, max_k]`` pool.
 """
 from __future__ import annotations
 
@@ -23,8 +24,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bsp
 from repro_torch.core.attractive import attractive_forces_frozen
+
+# One count per distinct (shape, static-arg) key of transform_step, the
+# reference's key, recorded on every call (the port compiles nothing).
+# Tests assert that ``RETRACE_PROBE.count`` does not grow across batch
+# payloads: every step has the batch's fixed shape.  Service telemetry
+# reports it as ``recompiles.transform_step``.
+RETRACE_PROBE = obs.RecompileProbe("transform_step")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +76,7 @@ def transform_step(state: TransformState, p: torch.Tensor, nbr_y: torch.Tensor,
     frozen fitted coordinates; active [B] bool (frozen rows keep their
     coordinates); momentum a scalar or [B].
     """
+    RETRACE_PROBE.record(tuple(state.y.shape), tuple(p.shape), lr, min_gain)
     force, kl_attr = attractive_forces_frozen(state.y, nbr_y, p)
     grad = 4.0 * force
     grad_norm = torch.linalg.norm(grad, dim=1)
@@ -97,7 +107,8 @@ def prepare_batch(x_new: torch.Tensor, index, y_ref: torch.Tensor, k: int,
 
 
 def transform_batch(x_new: torch.Tensor, index, y_ref: torch.Tensor, *, k: int,
-                    perplexity: float, config: TransformConfig = TransformConfig()):
+                    perplexity: float, config: TransformConfig = TransformConfig(),
+                    tracer: obs.Tracer | None = None):
     """Embed ``x_new [M, D]`` into the frozen fit ``y_ref [N, 2]``; M is
     arbitrary.  Both tensors lie on the index's device.
 
@@ -106,7 +117,14 @@ def transform_batch(x_new: torch.Tensor, index, y_ref: torch.Tensor, *, k: int,
     gradient norm drops under ``min_grad_norm`` (read on the host every
     ``check_every`` iterations, as the full loop's convergence rule).
     Returns ``(y [M, 2] numpy, TransformStats)``.
+
+    When ``tracer`` (default: the process-global tracer) is enabled the call
+    is one ``transform`` span with a ``transform.prepare`` (query +
+    perplexity search, synchronised on ``p`` and ``y0``) and a
+    ``transform.descend`` child per chunk.
     """
+    if tracer is None:
+        tracer = obs.get_tracer()
     m = int(x_new.shape[0])
     bs = config.batch_size
     dev = x_new.device
@@ -114,43 +132,48 @@ def transform_batch(x_new: torch.Tensor, index, y_ref: torch.Tensor, *, k: int,
     out_steps = np.zeros(m, np.int32)
     out_gn = np.zeros(m, np.float32)
     out_kl = np.zeros(m, np.float32)
-    for lo in range(0, m, bs):
-        chunk = x_new[lo:lo + bs]
-        c = int(chunk.shape[0])
-        pad = bs - c
-        p, nbr_y, y0 = prepare_batch(chunk, index, y_ref, k, perplexity)
-        if pad:
-            p = torch.nn.functional.pad(p, (0, 0, 0, pad))
-            nbr_y = torch.nn.functional.pad(nbr_y, (0, 0, 0, 0, 0, pad))
-            y0 = torch.nn.functional.pad(y0, (0, 0, 0, pad))
-        state = TransformState(y=y0, velocity=torch.zeros_like(y0), gains=torch.ones_like(y0))
-        valid = np.arange(bs) < c
-        active_h = valid.copy()
-        active = torch.as_tensor(active_h, device=dev)
-        steps = np.zeros(bs, np.int32)
-        gn_h = np.zeros(bs, np.float32)
-        kl_h = np.zeros(bs, np.float32)
-        it = 0
-        for it in range(config.n_iter):
-            mom = config.momentum_initial if it < config.momentum_switch_iter \
-                else config.momentum_final
-            state, gn, kl_attr = transform_step(state, p, nbr_y, active, mom,
-                                                lr=config.learning_rate,
-                                                min_gain=config.min_gain)
-            if (it + 1) % config.check_every == 0 or it == config.n_iter - 1:
-                gn_np = gn.cpu().numpy()
-                kl_np = kl_attr.cpu().numpy()
-                newly = active_h & (gn_np < config.min_grad_norm)
-                steps[newly] = it + 1
-                gn_h[active_h] = gn_np[active_h]
-                kl_h[active_h] = kl_np[active_h]
-                active_h = active_h & ~newly
-                if not active_h.any():
-                    break
+    with tracer.span("transform", m=m, k=k, batch_size=bs):
+        for lo in range(0, m, bs):
+            chunk = x_new[lo:lo + bs]
+            c = int(chunk.shape[0])
+            pad = bs - c
+            with tracer.span("transform.prepare", rows=c) as sp_prep:
+                p, nbr_y, y0 = prepare_batch(chunk, index, y_ref, k, perplexity)
+                sp_prep.sync((p, y0))
+            with tracer.span("transform.descend", rows=c):
+                if pad:
+                    p = torch.nn.functional.pad(p, (0, 0, 0, pad))
+                    nbr_y = torch.nn.functional.pad(nbr_y, (0, 0, 0, 0, 0, pad))
+                    y0 = torch.nn.functional.pad(y0, (0, 0, 0, pad))
+                state = TransformState(y=y0, velocity=torch.zeros_like(y0),
+                                       gains=torch.ones_like(y0))
+                valid = np.arange(bs) < c
+                active_h = valid.copy()
                 active = torch.as_tensor(active_h, device=dev)
-        steps[active_h] = it + 1
-        out_y[lo:lo + c] = state.y[:c].cpu().numpy()
-        out_steps[lo:lo + c] = steps[:c]
-        out_gn[lo:lo + c] = gn_h[:c]
-        out_kl[lo:lo + c] = kl_h[:c]
+                steps = np.zeros(bs, np.int32)
+                gn_h = np.zeros(bs, np.float32)
+                kl_h = np.zeros(bs, np.float32)
+                it = 0
+                for it in range(config.n_iter):
+                    mom = config.momentum_initial if it < config.momentum_switch_iter \
+                        else config.momentum_final
+                    state, gn, kl_attr = transform_step(state, p, nbr_y, active, mom,
+                                                        lr=config.learning_rate,
+                                                        min_gain=config.min_gain)
+                    if (it + 1) % config.check_every == 0 or it == config.n_iter - 1:
+                        gn_np = gn.cpu().numpy()
+                        kl_np = kl_attr.cpu().numpy()
+                        newly = active_h & (gn_np < config.min_grad_norm)
+                        steps[newly] = it + 1
+                        gn_h[active_h] = gn_np[active_h]
+                        kl_h[active_h] = kl_np[active_h]
+                        active_h = active_h & ~newly
+                        if not active_h.any():
+                            break
+                        active = torch.as_tensor(active_h, device=dev)
+                steps[active_h] = it + 1
+                out_y[lo:lo + c] = state.y[:c].cpu().numpy()
+                out_steps[lo:lo + c] = steps[:c]
+                out_gn[lo:lo + c] = gn_h[:c]
+                out_kl[lo:lo + c] = kl_h[:c]
     return out_y, TransformStats(n_steps=out_steps, grad_norm=out_gn, kl_attr=out_kl)

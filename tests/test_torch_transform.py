@@ -211,14 +211,19 @@ def test_validation(digits_split, loaded, tmp_path):
         loaded.transform(test_x[0])
 
 
-def test_load_refuses_a_traced_model(jax_saved, tmp_path):
+def test_load_accepts_a_traced_model(jax_saved, tmp_path):
     z = dict(np.load(jax_saved[2], allow_pickle=False))
     params = json.loads(str(z["params_json"]))
     params["trace"] = True
     z["params_json"] = np.array(json.dumps(params))
     np.savez_compressed(tmp_path / "traced.npz", **z)
-    with pytest.raises(ValueError, match="trace"):
-        TSNE.load(tmp_path / "traced.npz", device="cpu")
+    est = TSNE.load(tmp_path / "traced.npz", device="cpu")
+    assert est.trace is True and est.get_params()["trace"] is True
+    np.testing.assert_array_equal(est.embedding_, jax_saved[0].embedding_)
+    # and the port's save carries trace across to the JAX package
+    est.set_params(trace=str(tmp_path / "fit_trace.json"))
+    est.save(tmp_path / "port_traced.npz")
+    assert JTSNE.load(tmp_path / "port_traced.npz").trace == str(tmp_path / "fit_trace.json")
     z["schema"] = np.int32(2)
     np.savez_compressed(tmp_path / "schema2.npz", **z)
     with pytest.raises(ValueError, match="schema"):
