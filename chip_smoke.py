@@ -44,10 +44,14 @@ result line):
                first band), which is timed.
                Device times from torch.profiler for every kernel row; the
                spread's also at 128 boxes.  bh_traverse (the Barnes-Hut
-               walk) must repeat its plain twin bit for bit (force, z,
-               steps) at N = 1, 31, 33, 5 000 and 70 000, theta 0.5 and
-               0.2, on compressed and uncompressed trees, at a random
-               embedding, on duplicate and on coincident points.
+               walk: a pack kernel, then a thread a point over the
+               packed node records) must repeat its plain twin bit for
+               bit (force, z, steps) at N = 1, 31, 33, 1 000, 5 000 and
+               70 000, theta 0.5 and 0.2 (and 0 up to N = 1 000), on
+               compressed and uncompressed trees, at a random embedding,
+               on duplicate and on coincident points, and on clusters
+               1e4 apart whose warps straddle them (N = 69 997); its
+               packed records must equal pack_nodes bit for bit.
 4. gradient -- bh_gradient and fft_repulsion at a fixed y, N = 5 000, on
                the card against the port's own CPU path; and small fits
                (N = 500, Barnes-Hut and FFT) on the card against the same
@@ -66,7 +70,9 @@ result line):
                spans' durations; a Chrome trace that json.load reads; the
                fit.iterations metric n_iter_.  Then bh_traverse at
                the fitted embedding: checked bit for bit as in 3 and timed
-               (its kernels-line row).
+               (its kernels-line row, the pack's and the walk's device
+               times apart), with the warps' mean union length against
+               the mean walk of their longest lane.
 6. breakdown -- one Barnes-Hut step at the fitted embedding, stage by
                stage (Morton, sort, tree, summaries, traversal,
                attractive, update), to show where a step's time goes,
@@ -448,15 +454,27 @@ def walk_inputs(y: torch.Tensor, compress: bool, depth: int = 16):
 
 def check_traverse(what: str, y: torch.Tensor) -> None:
     """bh_traverse against its plain twin on the card, bit for bit (force,
-    z and steps), at N = 1, 31, 33, 5 000 and all of y, theta 0.5 and 0.2,
-    on the compressed and the uncompressed tree."""
-    from repro_torch.core.repulsive import bh_repulsion_sorted
+    z and steps), at N = 1, 31, 33, 1 000, 5 000 and all of y, theta 0.5
+    and 0.2, and 0 (every walk visits every node) up to N = 1 000, on the
+    compressed and the uncompressed tree; and the records its first kernel
+    packs against pack_nodes, bit for bit, over the valid nodes."""
+    from repro_torch.core.repulsive import RECORD_WORDS, bh_repulsion_sorted, pack_nodes
     from repro_torch.kernels import ops
     longest = 0
-    for m in sorted({1, 31, 33, 5000, y.shape[0]}):
+    sizes = sorted({min(m, y.shape[0]) for m in (1, 31, 33, 1000, 5000, y.shape[0])})
+    for m in sizes:
         for compress in (True, False):
             y_s, tree, summ = walk_inputs(y[:m].contiguous(), compress)
-            for theta in (0.5, 0.2):
+            n_nodes = int(tree.n_nodes)
+            records = torch.full((tree.capacity, RECORD_WORDS), -1, dtype=torch.int32,
+                                 device=y.device)
+            ops.bh_traverse_cuda(y_s, tree, summ, 0.5, records=records)
+            packed = pack_nodes(tree, summ)[:n_nodes]
+            if not torch.equal(records[:n_nodes], packed):
+                fail(f"bh_traverse's packed node records differ from pack_nodes ({what}, "
+                     f"N = {m}, compress {compress}) at "
+                     f"{int((records[:n_nodes] != packed).any(1).sum())} of {n_nodes} nodes")
+            for theta in (0.5, 0.2, 0.0) if m <= 1000 else (0.5, 0.2):
                 got = ops.bh_traverse(y_s, tree, summ, theta)
                 ref = bh_repulsion_sorted(y_s, tree, summ, theta)
                 if not all(torch.equal(a, b) for a, b in zip(got, ref)):
@@ -465,9 +483,10 @@ def check_traverse(what: str, y: torch.Tensor) -> None:
                          f"{float((got.force - ref.force).abs().max()):.3e}, steps differ "
                          f"at {int((got.steps != ref.steps).sum())} points")
                 longest = max(longest, int(ref.steps.max()))
-    log(f"bh_traverse {what}: N = 1, 31, 33, 5 000, {y.shape[0]}; theta 0.5, 0.2; "
-        f"compressed and uncompressed trees: force, z and steps bit-identical to the "
-        f"plain walk (longest walk {longest} steps)")
+    log(f"bh_traverse {what}: N = {', '.join(map(str, sizes))}; theta 0.5, 0.2 "
+        f"(0 to N = 1 000); compressed and uncompressed trees: force, z and steps "
+        f"bit-identical to the plain walk, packed records to pack_nodes (longest walk "
+        f"{longest} steps)")
 
 
 def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
@@ -564,10 +583,21 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
 
     # bh_traverse on the same random embedding (its row, at the fitted
     # embedding, comes after the Barnes-Hut fit), on every third point
-    # three times, and on coincident points
+    # three times, on coincident points, and on far-apart clusters whose
+    # Morton-consecutive points, the 32 of a warp, straddle them: every
+    # other point in one of two clusters 1e4 apart, and clusters of 7
+    # points on a grid 1e4 apart (N = 69 997, not a multiple of 32)
     check_traverse("random embedding", y)
     check_traverse("duplicate points", y[:n // 3].repeat_interleave(3, 0))
     check_traverse("coincident points", torch.zeros((33, 2), device=dev))
+    far_gen = torch.Generator(device="cpu").manual_seed(19)
+    far = torch.randn((69_997, 2), generator=far_gen)
+    far[1::2] += 1e4
+    check_traverse("two clusters 1e4 apart", far.to(dev))
+    cluster = torch.arange(69_997) // 7
+    far = torch.randn((69_997, 2), generator=far_gen) * 100.0 + 1e4 * torch.stack(
+        [cluster % 100, cluster // 100], dim=1).to(torch.float32)
+    check_traverse("7-point clusters 1e4 apart", far.to(dev))
 
     # attractive_ell on the real symmetric graph of the main path, with the
     # rows' real lengths (as the fits call it) and over the full width
@@ -778,7 +808,7 @@ def phase_gradient(x: torch.Tensor) -> None:
 # PR 17's untraced fits of the same configuration (NVIDIA H100 80GB HBM3,
 # 700.00 W; PERF.md section 5), printed beside the traced ones
 PR17_FITS = {
-    "barnes_hut": dict(knn=0.389, symmetrize=3.558, gradient_descent=10.54, kl=3.5966),
+    "barnes_hut": dict(knn=0.389, symmetrize=3.558, gradient_descent=10.54, kl=3.596582),
     "fft": dict(knn=0.390, symmetrize=4.173, gradient_descent=2.177, kl=3.762970),
 }
 FIT_PHASES = ("knn", "bsp", "symmetrize", "gradient_descent")
@@ -902,26 +932,45 @@ def phase_traverse(est) -> dict:
     """bh_traverse at the Barnes-Hut fit's embedding: checked bit for bit
     against the plain walk (check_traverse), then timed at the fit's
     settings (theta 0.5, depth 16, compressed tree): the kernels line's
-    row.  Its bound counts the walks of this embedding: every visit's
-    15 fp32 operations (the three an accepted node adds besides, and its
+    row, with the device times of its two kernels (pack, walk) apart and
+    summed.  How far a warp's walks diverge: the union of its 32 walks
+    (repulsive.warp_walk, a warp-shared schedule, which must give the
+    kernel's bits) against its longest walk (the plain walk's steps).  Its
+    bound counts the walks of this embedding: every visit's 15 fp32
+    operations (the three an accepted node adds besides, and its
     reciprocal, not counted) at the fp32 rate, and each node's 40 bytes
     (start, end, skip, count, sum_y, side), the points and the outputs
-    moved once."""
-    from repro_torch.core.repulsive import bh_repulsion_sorted
+    moved once; the packed records are the kernel's own scratch, not
+    counted."""
+    from repro_torch.core.repulsive import bh_repulsion_sorted, pack_nodes, warp_walk
     from repro_torch.kernels import ops
     y = torch.as_tensor(est.embedding_).cuda()
     check_traverse("fitted embedding", y)
     y_s, tree, summ = walk_inputs(y, compress=True)
     got = ops.bh_traverse(y_s, tree, summ, 0.5)
     n, visits, n_nodes = y.shape[0], int(got.steps.sum()), int(tree.n_nodes)
+    sched, union = warp_walk(y_s, pack_nodes(tree, summ), summ.sum_y, tree.n_nodes, 0.5)
+    if not all(torch.equal(a, b) for a, b in zip(sched, got)):
+        fail("repulsive.warp_walk does not give bh_traverse's bits at the fitted embedding")
+    steps = torch.zeros(union.shape[0] * 32, dtype=torch.int64, device=y.device)
+    steps[:n] = got.steps
+    longest = steps.view(-1, 32).amax(dim=1)
+    walks = dict(warps=union.shape[0], union_mean=float(union.double().mean()),
+                 longest_lane_mean=float(longest.double().mean()),
+                 union_over_longest=float(union.sum()) / float(longest.sum()),
+                 union_max=int(union.max()), longest_lane_max=int(longest.max()))
+    log("bh_traverse warps at the fitted embedding: " + json.dumps(walks))
+    pack_ms = kernel_ms(lambda: ops.bh_traverse(y_s, tree, summ, 0.5), "traverse_pack")
+    walk_ms = kernel_ms(lambda: ops.bh_traverse(y_s, tree, summ, 0.5), "traverse_walk")
     return kernel_row(
         "bh_traverse", 0.0,
         cuda_ms(lambda: ops.bh_traverse(y_s, tree, summ, 0.5), inner=10),
         cuda_ms(lambda: bh_repulsion_sorted(y_s, tree, summ, 0.5), reps=3, inner=1),
         flops=15.0 * visits, nbytes=40.0 * n_nodes + 8.0 + (8.0 + 8.0 + 4.0 + 8.0) * n,
-        device_ms=kernel_ms(lambda: ops.bh_traverse(y_s, tree, summ, 0.5), "traverse"),
+        device_ms=None if pack_ms is None or walk_ms is None else pack_ms + walk_ms,
+        pack_device_ms=pack_ms, walk_device_ms=walk_ms,
         n_nodes=n_nodes, visits=visits, max_steps=int(got.steps.max()),
-        mean_steps=visits / n)
+        mean_steps=visits / n, **walks)
 
 
 def check_reproducible(est) -> None:
@@ -1257,8 +1306,9 @@ def phase_approx_fit(x_np: np.ndarray, n_iter: int, exag_iters: int, kl_every: i
                    ("morton_encode", "attractive_ell", "bh_traverse"), est_rp.n_iter_)
     est_ex, _ = phase_fit(train, "barnes_hut", *steps, label="exact-graph bh (train split)")
     gap = abs(est_rp.kl_divergence_ - est_ex.kl_divergence_)
-    log(f"approx fit: KL rp_forest {est_rp.kl_divergence_:.6f}, exact graph "
-        f"{est_ex.kl_divergence_:.6f}, gap {gap:.6f} (< 0.15); knn {est_rp.timings_['knn']:.3f} s "
+    log(f"approx fit: KL rp_forest {est_rp.kl_divergence_:.6f} (earlier runs: 3.479328), exact "
+        f"graph {est_ex.kl_divergence_:.6f}, gap {gap:.6f} (< 0.15); knn "
+        f"{est_rp.timings_['knn']:.3f} s "
         f"against {est_ex.timings_['knn']:.3f} s")
     if not gap < 0.15:
         fail("the rp_forest fit's KL is not within 0.15 of the exact-graph fit's")

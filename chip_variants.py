@@ -46,8 +46,15 @@ two gathers give the same bits, and times the other gather before and
 after each round.  ``knn`` times the knn phase at MNIST size with the
 port's merge of the chunks (torch.topk over distance-index keys) beside
 a stable sort and the tie-blind torch.topk.  ``traverse`` times
-``traverse.cu`` with 64, 128 or 256 threads a CTA on a random embedding
-and a fitted one, each checked bit for bit against the plain walk.
+``traverse.cu`` (a pack kernel, then a thread a point over the packed
+node records) beside the earlier kernel over the tree's own arrays
+(``variants/traverse_arrays.cu``) in alternating pairs, its CTA sizes, a
+shared-memory copy of the top of the pre-order and one CTA an SM, and a
+warp-shared walk through the union of the lanes' walks
+(``variants/traverse_warp.cu``) with and without its prefetch, and two
+lanes a point (``variants/traverse_pairs.cu``), on a random embedding and
+a fitted one, each checked bit for bit against the plain walk; then one
+Barnes-Hut descent step with either kernel, in alternating pairs.
 ``wrappers`` times the
 wrappers at the main path's shapes on random inputs (CUDA-event ms and
 the host's microseconds a call; bh_traverse where the port has it) and
@@ -658,60 +665,219 @@ def run_knn(x: torch.Tensor) -> None:
                                   runs=times)), flush=True)
 
 
-# compile-time variants of csrc/traverse.cu: the CTA size
+# compile-time variants of csrc/traverse.cu (the pack kernel, then one
+# thread a point walking the packed records, 256-thread CTAs: "base")
 TRAVERSE = {
     "base": [],
     "threads64": [("constexpr int THREADS = 256;", "constexpr int THREADS = 64;")],
     "threads128": [("constexpr int THREADS = 256;", "constexpr int THREADS = 128;")],
+    "threads512": [("constexpr int THREADS = 256;", "constexpr int THREADS = 512;")],
+    # the first 512 nodes of the pre-order (every walk's first steps) in
+    # shared memory
+    "smem_top512": [
+        ("__device__ __forceinline__ Node load_node(const Node* __restrict__ nodes, int k) {\n",
+         "constexpr int TOP = 512;\n__shared__ Node top[TOP];\n\n"
+         "__device__ __forceinline__ Node load_node(const Node* __restrict__ nodes, int k) {\n"
+         "  if (k < TOP) return top[k];\n"),
+        ("  if (p >= n) return;\n  const int nn = valid_nodes(n_nodes, cap);\n",
+         "  const int nn = valid_nodes(n_nodes, cap);\n"
+         "  for (int k = threadIdx.x; k < min(TOP, nn); k += THREADS) {\n"
+         "    top[k].f = __ldg(&nodes[k].f);\n    top[k].i = __ldg(&nodes[k].i);\n  }\n"
+         "  __syncthreads();\n  if (p >= n) return;\n")],
+    # one CTA an SM: ceil(warps / SMs) warps a CTA, so that each SM walks
+    # one contiguous run of points
+    "cta_per_sm": [
+        ("constexpr int THREADS = 256;", "constexpr int THREADS = 1024;"),
+        ("const int p = blockIdx.x * THREADS + threadIdx.x;\n  if (p >= n) return;",
+         "const int p = blockIdx.x * blockDim.x + threadIdx.x;\n  if (p >= n) return;"),
+        ("traverse_walk_kernel<<<blocks(n, THREADS), THREADS, 0, s>>>(",
+         "traverse_walk_kernel<<<blocks(n, sm_threads(n)), sm_threads(n), 0, s>>>("),
+        ("}  // namespace\n",
+         "int sm_threads(int n) {\n  int dev = 0, sms = 1;\n  cudaGetDevice(&dev);\n"
+         "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
+         "  const long long per_sm = ((n + 31LL) / 32 + sms - 1) / sms;\n"
+         "  return (int)(32 * (per_sm < 32 ? per_sm : 32));\n}\n\n}  // namespace\n")],
 }
+# the warp-shared design (variants/traverse_warp.cu: the warp steps through
+# the union of its lanes' walks, the record of w + 1 loaded ahead) and the
+# same source with one step taken out or changed at a time
+_NO_PREFETCH = [
+    ("    const Node next = load_node(nodes, min(w + 1, cap - 1));   // w's successor if it opens\n",
+     ""),
+    ("cur = w_next == w + 1 ? next : load_node(", "cur = load_node("),
+]
+_PER_LANE = [("__reduce_min_sync(FULL, ptr)", "ptr")]   # each lane walks on its own
+TRAVERSE_WARP = {
+    "warp": [],
+    "warp_no_prefetch": _NO_PREFETCH,
+    "lane_prefetch": _PER_LANE,
+    "lane": _PER_LANE + _NO_PREFETCH,          # the port's walk, written as a loop of votes
+    "warp_threads64": [("constexpr int THREADS = 256;", "constexpr int THREADS = 64;")],
+    "warp_threads512": [("constexpr int THREADS = 256;", "constexpr int THREADS = 512;")],
+}
+# two lanes a point, each loading half of the record (variants/traverse_pairs.cu)
+TRAVERSE_PAIRS = {
+    "pairs": [],
+    "pairs_threads128": [("constexpr int THREADS = 256;", "constexpr int THREADS = 128;")],
+    "pairs_threads512": [("constexpr int THREADS = 256;", "constexpr int THREADS = 512;")],
+}
+# the earlier kernel, one thread a point over the tree's own arrays: kept
+# beside chip_variants.py, not in csrc/, which holds the port's kernels only
+VARIANTS = ROOT / "variants"
+_ARRAYS_ARGTYPES = [P] * 8 + [ctypes.c_float] + [P] * 3 + [I, I, P]
 
 
-def run_traverse(x_np: np.ndarray, stream: int) -> None:
-    """Each traverse.cu variant on a random embedding (randn x 20, as
-    chip_smoke.py's kernels phase) and at the embedding of a Barnes-Hut
-    fit of 1 000 steps (theta 0.5, compressed tree): bit-identical to the
-    plain walk, device ms (torch.profiler) and CUDA-event ms, two rounds."""
+def run_traverse(x_np: np.ndarray, stream: int, pairs: int = 10) -> None:
+    """The port's kernel (csrc/traverse.cu: pack, then a thread a point over
+    the packed records) and its variants, the warp-shared and the
+    two-lanes-a-point designs and their variants, and the earlier kernel
+    over the tree's own arrays, on a
+    random embedding (randn x 20, as chip_smoke.py's kernels phase) and at
+    the embedding of a Barnes-Hut fit of 1 000 steps (theta 0.5, compressed
+    tree).  Each is checked bit for bit against the plain walk (force, z,
+    steps; the pack's records against pack_nodes); then the warps' union
+    length against their longest lane (repulsive.warp_walk on the card),
+    ``pairs`` alternating pairs earlier kernel / port's (CUDA-event ms of
+    10 back-to-back calls, median of 7; device ms of each kernel by
+    torch.profiler), every variant twice, and the whole descent step with
+    either kernel (run_traverse_step)."""
     from repro_torch.api import TSNE
     from repro_torch.core import morton, quadtree, summarize
-    from repro_torch.core.repulsive import bh_repulsion_sorted, theta_squared
+    from repro_torch.core.repulsive import (
+        RECORD_WORDS, bh_repulsion_sorted, pack_nodes, theta_squared, warp_walk,
+    )
     from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(0)
-    fitted = TSNE(perplexity=30, random_state=0, backend_options=dict(
-        knn_block_q=4096, knn_block_db=8192)).fit_transform(x_np)
+    est = TSNE(perplexity=30, random_state=0, backend_options=dict(
+        knn_block_q=4096, knn_block_db=8192)).fit(x_np)
     inputs = {"random": (torch.randn((70_000, 2), generator=gen) * 20.0).cuda(),
-              "fitted": torch.as_tensor(fitted).cuda()}
+              "fitted": torch.as_tensor(est.embedding_).cuda()}
     libs = build_variants("traverse", TRAVERSE)
+    libs.update(build_variants("traverse", TRAVERSE_WARP, path=VARIANTS / "traverse_warp.cu",
+                               tag="traverse_warp"))
+    libs.update(build_variants("traverse", TRAVERSE_PAIRS, path=VARIANTS / "traverse_pairs.cu",
+                               tag="traverse_pairs"))
+    libs["arrays"] = build_variants("traverse", {"arrays": []},
+                                    path=VARIANTS / "traverse_arrays.cu",
+                                    tag="traverse_arrays")["arrays"]
     symbol, argtypes = ops._SIGNATURES["traverse"]
+    kernels = {name: ("traverse_kernel",) if name == "arrays"
+               else ("traverse_pack", "traverse_walk") for name in libs}
+    t2 = theta_squared(0.5)
     for what, y in inputs.items():
         cent, r_span = morton.span_radius(y)
         codes_s, y_s, _ = quadtree.sort_points_by_code(y, ops.morton_encode(y, cent, r_span))
         tree = quadtree.build_quadtree(codes_s)
         summ = summarize.summarize(tree, y_s, r_span)
         ref = bh_repulsion_sorted(y_s, tree, summ, 0.5)
-        n = y.shape[0]
+        n, cap, n_nodes = y.shape[0], tree.capacity, int(tree.n_nodes)
         out = (torch.empty((n, 2), device="cuda"), torch.empty((n,), device="cuda"),
                torch.empty((n,), dtype=torch.int64, device="cuda"))
+        records = torch.empty((cap, RECORD_WORDS), dtype=torch.int32, device="cuda")
+        tree_args = (y_s.data_ptr(), tree.start.data_ptr(), tree.end.data_ptr(),
+                     tree.skip.data_ptr(), tree.n_nodes.data_ptr(), summ.count.data_ptr(),
+                     summ.sum_y.data_ptr(), summ.side.data_ptr(), t2)
+        out_args = tuple(t.data_ptr() for t in out) + (n, cap, stream)
+        calls = {}
+        for name, (lib, regs) in libs.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = _ARRAYS_ARGTYPES if name == "arrays" else argtypes
+            fn.restype = ctypes.c_int
+            args = tree_args + (() if name == "arrays" else (records.data_ptr(),)) + out_args
+
+            def call(fn=fn, args=args, name=name):
+                err = fn(*args)
+                if err:
+                    raise SystemExit(f"traverse/{name}: launch error {err}")
+
+            calls[name] = call
+            records.fill_(-1)
+            call()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            if name != "arrays":
+                same = same and torch.equal(records[:n_nodes], pack_nodes(tree, summ)[:n_nodes])
+            print(json.dumps(dict(kernel="traverse", variant=name, input=what, registers=regs,
+                                  bit_identical=same)), flush=True)
+        _, union = warp_walk(y_s, pack_nodes(tree, summ), summ.sum_y, tree.n_nodes, 0.5)
+        steps = torch.zeros(union.shape[0] * 32, dtype=torch.int64, device="cuda")
+        steps[:n] = ref.steps
+        longest = steps.view(-1, 32).amax(dim=1)
+        print(json.dumps(dict(kernel="traverse", input=what, n_nodes=n_nodes,
+                              visits=int(ref.steps.sum()), warps=union.shape[0],
+                              union_mean=float(union.double().mean()),
+                              longest_lane_mean=float(longest.double().mean()),
+                              union_over_longest=float(union.sum() / longest.sum()),
+                              union_max=int(union.max()), longest_max=int(longest.max()))),
+              flush=True)
+
+        def timing(name):
+            dev = {k: device_ms(calls[name], k) for k in kernels[name]}
+            return dict(ms=event_ms(calls[name]),
+                        device_ms=sum(d["match"] or 0.0 for d in dev.values()),
+                        device={k: d["match"] for k, d in dev.items()},
+                        recorded={k: d["recorded"] for k, d in dev.items()})
+
+        for i in range(pairs):
+            for name in ("arrays", "base") if i % 2 == 0 else ("base", "arrays"):
+                print(json.dumps(dict(kernel="traverse", input=what, pair=i, variant=name,
+                                      **timing(name))), flush=True)
         for rnd in range(2):
-            for name, (lib, regs) in libs.items():
-                fn = getattr(lib, symbol)
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            for name in libs:
+                print(json.dumps(dict(kernel="traverse", input=what, round=rnd, variant=name,
+                                      **timing(name))), flush=True)
+    run_traverse_step(est, libs["arrays"][0], pairs)
 
-                def call():
-                    err = fn(y_s.data_ptr(), tree.start.data_ptr(), tree.end.data_ptr(),
-                             tree.skip.data_ptr(), tree.n_nodes.data_ptr(),
-                             summ.count.data_ptr(), summ.sum_y.data_ptr(),
-                             summ.side.data_ptr(), theta_squared(0.5), out[0].data_ptr(),
-                             out[1].data_ptr(), out[2].data_ptr(), n, tree.capacity, stream)
-                    if err:
-                        raise SystemExit(f"traverse/{name}: launch error {err}")
 
-                call()
-                torch.cuda.synchronize()
-                same = all(torch.equal(a, b) for a, b in zip(out, ref))
-                print(json.dumps(dict(kernel="traverse", variant=name, input=what, round=rnd,
-                                      registers=regs, bit_identical=same,
-                                      device=device_ms(call, "traverse"),
-                                      ms=event_ms(call))), flush=True)
+def run_traverse_step(est, arrays_lib, pairs: int) -> None:
+    """One Barnes-Hut descent step (core.tsne.tsne_step, the fit's backend)
+    at the fitted embedding with the port's bh_traverse and with the
+    earlier kernel behind it (ops.bh_traverse_cuda swapped): ``pairs``
+    alternating pairs of CUDA-event ms (10 back-to-back steps, median of 7)."""
+    from repro_torch.api import make_backend
+    from repro_torch.core.repulsive import RepulsionResult, theta_squared
+    from repro_torch.core.tsne import TsneConfig, TsneState, tsne_step
+    from repro_torch.kernels import ops
+    fn = getattr(arrays_lib, ops._SIGNATURES["traverse"][0])
+    fn.argtypes, fn.restype = _ARRAYS_ARGTYPES, ctypes.c_int
+
+    def arrays_cuda(y_s, tree, summ, theta, records=None):
+        n = y_s.shape[0]
+        out = RepulsionResult(torch.empty((n, 2), device=y_s.device),
+                              torch.empty((n,), device=y_s.device),
+                              torch.empty((n,), dtype=torch.int64, device=y_s.device))
+        err = fn(y_s.data_ptr(), tree.start.data_ptr(), tree.end.data_ptr(),
+                 tree.skip.data_ptr(), tree.n_nodes.data_ptr(), summ.count.data_ptr(),
+                 summ.sum_y.data_ptr(), summ.side.data_ptr(), theta_squared(theta),
+                 *(t.data_ptr() for t in out), n, tree.capacity,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"traverse/arrays: launch error {err}")
+        return out
+
+    g = est.neighbor_graph_
+    y = torch.as_tensor(est.embedding_).cuda()
+    state = TsneState(y=y, velocity=torch.zeros_like(y), gains=torch.ones_like(y), iteration=0)
+    backend = make_backend("barnes_hut", TsneConfig(), y.shape[0])
+    kernels = {"base": ops.bh_traverse_cuda, "arrays": arrays_cuda}
+
+    def step():
+        return tsne_step(state, g, 1.0, 0.8, backend=backend, lr=est.learning_rate_,
+                         min_gain=0.01)
+
+    try:
+        ys = {}
+        for name, kernel in kernels.items():
+            ops.bh_traverse_cuda = kernel
+            ys[name] = step()[0].y
+        same = torch.equal(ys["base"], ys["arrays"])
+        for i in range(pairs):
+            for name in ("arrays", "base") if i % 2 == 0 else ("base", "arrays"):
+                ops.bh_traverse_cuda = kernels[name]
+                print(json.dumps(dict(kernel="traverse", input="bh_step", pair=i, variant=name,
+                                      same_step=same, ms=event_ms(step))), flush=True)
+    finally:
+        ops.bh_traverse_cuda = kernels["base"]
 
 
 def recall_rows(x: torch.Tensor, rows: torch.Tensor, k: int) -> np.ndarray:

@@ -41,7 +41,8 @@ _SIGNATURES = {
     "attractive": ("attractive_ell", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "spread": ("fft_spread", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P]),
     "gather": ("fft_gather", [_P, _P, _P, _P, _P, _I, _I, _P]),
-    "traverse": ("bh_traverse", [_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _P]),
+    "traverse": ("bh_traverse", [_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I,
+                                    _P]),
 }
 _ENTRIES: dict = {}   # source -> its C entry, argtypes and restype set
 
@@ -252,8 +253,20 @@ def bh_traverse(y_sorted: torch.Tensor, tree: LinearQuadtree, summary: TreeSumma
     return bh_traverse_cuda(y_sorted, tree, summary, theta)
 
 
-def bh_traverse_cuda(y_sorted, tree, summary, theta: float) -> repulsive.RepulsionResult:
+def bh_traverse_cuda(y_sorted, tree, summary, theta: float,
+                     records: torch.Tensor | None = None) -> repulsive.RepulsionResult:
+    """One launch of ``csrc/traverse.cu``: its first kernel packs the valid
+    nodes into ``records`` ([cap, 8] int32, ``repulsive.pack_nodes``'s
+    layout; allocated here if None, and given only to read the packed
+    records back), its second walks them."""
     n, dev = y_sorted.shape[0], y_sorted.device
+    cap = tree.capacity
+    if records is None:
+        records = torch.empty((cap, repulsive.RECORD_WORDS), dtype=torch.int32, device=dev)
+    elif (records.dtype != torch.int32 or records.shape != (cap, repulsive.RECORD_WORDS)
+          or not records.is_contiguous() or records.data_ptr() % 16):
+        raise ValueError(f"records: expected a contiguous, 16-byte aligned [{cap}, "
+                         f"{repulsive.RECORD_WORDS}] int32 tensor")
     force = torch.empty((n, 2), dtype=torch.float32, device=dev)
     z = torch.empty((n,), dtype=torch.float32, device=dev)
     steps = torch.empty((n,), dtype=torch.int64, device=dev)
@@ -261,8 +274,8 @@ def bh_traverse_cuda(y_sorted, tree, summary, theta: float) -> repulsive.Repulsi
         _launch("bh_traverse", "traverse", dev, y_sorted.data_ptr(), tree.start.data_ptr(),
                 tree.end.data_ptr(), tree.skip.data_ptr(), tree.n_nodes.data_ptr(),
                 summary.count.data_ptr(), summary.sum_y.data_ptr(), summary.side.data_ptr(),
-                repulsive.theta_squared(theta), force.data_ptr(), z.data_ptr(),
-                steps.data_ptr(), n, tree.capacity)
+                repulsive.theta_squared(theta), records.data_ptr(), force.data_ptr(),
+                z.data_ptr(), steps.data_ptr(), n, cap)
     return repulsive.RepulsionResult(force=force, z_per_point=z, steps=steps)
 
 
@@ -521,7 +534,7 @@ def kernel_registry() -> dict:
             source="src/repro_torch/csrc/traverse.cu",
             tpu=None,   # a jax.vmap over a lax.while_loop: no pallas_call
             replaces="src/repro/core/repulsive.py:55",
-            doc="§3.5: rope-linearised BH walk, a thread a point in Morton order"),
+            doc="§3.5: rope-linearised BH walk, a thread a point over packed node records"),
     }
 
 

@@ -325,8 +325,9 @@ def test_morton_launch_reads_the_root_cell_on_the_device(monkeypatch):
 
 
 def test_traverse_launch_passes_the_tree_on_the_device(monkeypatch):
-    # n_nodes goes to the kernel as a pointer (no host read); theta^2 is
-    # rounded as the plain walk rounds it
+    # n_nodes goes to the kernel as a pointer (no host read), with the
+    # scratch the kernel packs the node records into; theta^2 is rounded
+    # as the plain walk rounds it
     from repro_torch.core import quadtree, repulsive, summarize
     launches = []
     monkeypatch.setattr(ops, "_launch", lambda *a: launches.append(a))
@@ -335,14 +336,21 @@ def test_traverse_launch_passes_the_tree_on_the_device(monkeypatch):
     cs, ys, _ = quadtree.sort_points_by_code(y, morton.morton_encode(y, cent, r))
     tree = quadtree.build_quadtree(cs)
     summ = summarize.summarize(tree, ys, r)
-    res = ops.bh_traverse_cuda(ys, tree, summ, 0.3)
+    records = torch.empty((tree.capacity, repulsive.RECORD_WORDS), dtype=torch.int32)
+    res = ops.bh_traverse_cuda(ys, tree, summ, 0.3, records=records)
     (name, source, _, *args), = launches
     assert (name, source) == ("bh_traverse", "traverse")
     assert args == [ys.data_ptr(), tree.start.data_ptr(), tree.end.data_ptr(),
                     tree.skip.data_ptr(), tree.n_nodes.data_ptr(), summ.count.data_ptr(),
                     summ.sum_y.data_ptr(), summ.side.data_ptr(),
-                    float(torch.tensor(0.3) ** 2), res.force.data_ptr(),
+                    float(torch.tensor(0.3) ** 2), records.data_ptr(), res.force.data_ptr(),
                     res.z_per_point.data_ptr(), res.steps.data_ptr(), 40, tree.capacity]
+    # without a buffer the wrapper allocates one: [cap, 8] int32, one
+    # 32-byte record a node
+    ops.bh_traverse_cuda(ys, tree, summ, 0.3)
+    assert isinstance(launches[1][3 + 9], int) and launches[1][3 + 9] != records.data_ptr()
+    with pytest.raises(ValueError, match="records"):
+        ops.bh_traverse_cuda(ys, tree, summ, 0.3, records=records[:-1])
     assert repulsive.theta_squared(0.3) == float(np.float32(0.3) * np.float32(0.3))
     assert (res.force.shape, res.z_per_point.shape, res.steps.dtype) == \
         ((40, 2), (40,), torch.int64)

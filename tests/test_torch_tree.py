@@ -23,7 +23,7 @@ from repro.core.quadtree import sort_points_by_code as jsort  # noqa: E402
 from repro.core.repulsive import bh_repulsion_sorted as jrep  # noqa: E402
 from repro.core.summarize import summarize as jsumm  # noqa: E402
 from repro_torch.core import attractive, exact, morton, quadtree  # noqa: E402
-from repro_torch.core.repulsive import bh_repulsion_sorted  # noqa: E402
+from repro_torch.core.repulsive import bh_repulsion_sorted, pack_nodes, warp_walk  # noqa: E402,E501
 from repro_torch.core.summarize import TreeSummary, summarize  # noqa: E402
 from repro_torch.core.tsne import bh_gradient  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -266,3 +266,90 @@ def test_bh_traverse_wrapper_on_cpu_is_the_twin():
         ops.bh_traverse(ys_t, tt, summ._replace(sum_y=summ.sum_y.T.contiguous().T), 0.5)
     with pytest.raises(ValueError, match="different devices"):
         ops.bh_traverse(ys_t, tt, summ._replace(side=summ.side.to("meta")), 0.5)
+
+
+# ------------------------------------- the walk kernel's records, on the CPU --
+
+def design_inputs(case, n, compress, depth=16):
+    """(y_sorted, tree, summaries) of n points, built by the port alone:
+    clusters; each point three times (duplicates); 16 points at one spot
+    beside clusters (coincident); alternate points in two clusters 1e4
+    apart, so that groups of Morton-consecutive points straddle both (far)."""
+    if case == "duplicates":
+        y = np.repeat(make_points(-(-n // 3), seed=89), 3, axis=0)[:n]
+    elif case == "coincident":
+        y = np.concatenate([np.zeros((min(n, 16), 2), np.float32),
+                            make_points(max(n - 16, 0), seed=97)])
+    else:
+        y = make_points(n, seed=101)
+        if case == "far":
+            y[1::2] += np.float32(1e4)
+    yt = T(y)
+    cent, r = morton.span_radius(yt)
+    cs, ys, _ = quadtree.sort_points_by_code(yt, ops.morton_encode(yt, cent, r, depth=depth))
+    tree = quadtree.build_quadtree(cs, depth=depth, compress=compress)
+    return ys, tree, summarize(tree, ys, r)
+
+
+def as_bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("compress", [True, False])
+@pytest.mark.parametrize("case", ["clusters", "duplicates", "coincident", "far"])
+def test_pack_nodes_is_the_walks_node_arithmetic(case, compress):
+    ys, tree, summ = design_inputs(case, 1000, compress)
+    rec = pack_nodes(tree, summ)
+    assert rec.dtype == torch.int32 and rec.shape == (tree.capacity, 8)
+    # the int32 fields are the tree's int64 arrays
+    for col, arr in zip((4, 5, 6), (tree.start, tree.end, tree.skip)):
+        assert torch.equal(rec[:, col].to(torch.int64), arr)
+    assert not rec[:, 7].any()
+    # com and side^2 are, bit for bit, what the plain walk computes for a
+    # node that does not hold the point
+    outside = torch.zeros(tree.capacity, dtype=torch.bool)
+    cnt_eff = summ.count - outside.to(torch.float32)
+    sum_eff = summ.sum_y - torch.where(outside[:, None], summ.sum_y, 0.0)
+    com = sum_eff / torch.clamp_min(cnt_eff, 1.0)[:, None]
+    side2 = summ.side * summ.side
+    for col, want in enumerate((com[:, 0], com[:, 1], cnt_eff, side2)):
+        assert torch.equal(rec[:, col], as_bits(want))
+
+
+@pytest.mark.parametrize("theta", [0.5, 0.2, 0.0])
+@pytest.mark.parametrize("compress", [True, False])
+@pytest.mark.parametrize("case", ["clusters", "duplicates", "coincident"])
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_warp_walk_is_the_plain_walk(n, case, compress, theta):
+    # the warp-shared schedule: 32 Morton-consecutive points step through
+    # the union of their walks, reading packed records (the slots past
+    # n_nodes, which the pack kernel never writes, filled with NaN bits
+    # here) and sum_y only where the node holds the point; force, z and
+    # steps bit-identical
+    ys, tree, summ = design_inputs(case, n, compress)
+    rec = pack_nodes(tree, summ)
+    rec[int(tree.n_nodes):] = -1
+    ref = bh_repulsion_sorted(ys, tree, summ, theta)
+    got, union = warp_walk(ys, rec, summ.sum_y, tree.n_nodes, theta)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    # a warp's union holds its longest walk and at most every node; at
+    # theta 0 every walk is every node
+    steps = torch.zeros(union.shape[0] * 32, dtype=torch.int64)
+    steps[:n] = ref.steps
+    longest = steps.view(-1, 32).amax(dim=1)
+    assert (union >= longest).all() and (union <= tree.n_nodes).all()
+    if theta == 0.0:
+        assert (union == tree.n_nodes).all()
+
+
+@pytest.mark.parametrize("theta", [0.5, 0.0])
+@pytest.mark.parametrize("n", [33, 1000])
+def test_warp_walk_straddling_far_clusters(n, theta):
+    # warps that hold points of two clusters 1e4 apart walk both clusters'
+    # subtrees: the union is longer than any one walk, the result the same
+    ys, tree, summ = design_inputs("far", n, True)
+    ref = bh_repulsion_sorted(ys, tree, summ, theta)
+    got, union = warp_walk(ys, pack_nodes(tree, summ), summ.sum_y, tree.n_nodes, theta)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    if theta:
+        assert int(union.max()) > int(ref.steps.max())
