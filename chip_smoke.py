@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                  # the full run: one card, no arguments
     python3 chip_smoke.py --n-iter 300 --exaggeration-iters 150   # shorter descents
+    python3 chip_smoke.py --sharded-only   # phases 1, 2, 5 and 13 (for several cards)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -138,12 +139,36 @@ result line):
                python -m repro_torch.embed.service --smoke --trace
                build/service_trace.json, which must exit 0 and write a
                trace that loads.
+13. sharded  -- the multi-device path (core/distributed.py) on
+               Mesh((cuda:0,) * 4), four real shards on one card:
+               bh_traverse at each shard's sorted positions bit for bit
+               against the plain walk at those positions and the full
+               walk's rows (N = 33, 5 000, 70 000; the BH fit's embedding
+               and the far-apart clusters of 3), attractive_ell with each
+               shard's row offset bit for bit against the full pass's
+               rows; distributed_bh_gradient at the BH fit's embedding
+               against bh_gradient (f_rep rows bit-identical, Z, KL and
+               gradient to the partial sums' order), one sharded step
+               against the single-device step, stage by stage, with its
+               idle share; ring_knn on MNIST against the exact KNN (row
+               sets >= 99.9%, d2 within pairwise's tolerance) and
+               ring_knn_approx with its defaults on all of mouse_1p3m
+               (seconds, validity, recall on phase 9's rows);
+               launch.tsne_run.run_distributed on MNIST at the BH fit's
+               steps, launch counts reset before and read after (morton,
+               attractive, bh_traverse 4 a step; its KL with sum p log p
+               added back within 2% of phase 5's).  With more than one
+               card visible the gradient, both rings and the fit again on
+               a mesh of every card.  Last, preprocess with
+               TsneConfig(neighbor_method="sharded") on MNIST over the
+               visible cards: the graph's invariants and seconds.
 
 Every kernel must be launched by at least one of the two fits.  Each
-driven path (the two fits and the service) has its launch counts set to
-0 just before it and read just after.
+driven path (the two fits, the service and the sharded fit) has its
+launch counts set to 0 just before it and read just after.
 
-The line before the last is the kernels JSON object; the last line is
+The line before the last is the kernels JSON object (each row's
+``sharded_launches`` from the sharded fit); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -441,15 +466,31 @@ def check_knn_ties(x: torch.Tensor) -> None:
         "512 x 2048: the card's indices equal the plain KNN's on the CPU")
 
 
-def walk_inputs(y: torch.Tensor, compress: bool, depth: int = 16):
-    """(y_sorted, tree, summaries) of embedding y, built as bh_gradient builds them."""
+def walk_inputs(y: torch.Tensor, compress: bool = True, depth: int = 16):
+    """(y_sorted, tree, summaries, perm) of embedding y, built as bh_gradient
+    builds them."""
     from repro_torch.core import morton, quadtree
     from repro_torch.core.summarize import summarize
     from repro_torch.kernels import ops
     cent, r_span = morton.span_radius(y)
-    codes_s, y_s, _ = quadtree.sort_points_by_code(y, ops.morton_encode(y, cent, r_span, depth))
+    codes_s, y_s, perm = quadtree.sort_points_by_code(
+        y, ops.morton_encode(y, cent, r_span, depth))
     tree = quadtree.build_quadtree(codes_s, depth=depth, compress=compress)
-    return y_s, tree, summarize(tree, y_s, r_span)
+    return y_s, tree, summarize(tree, y_s, r_span), perm
+
+
+def far_clusters() -> dict[str, torch.Tensor]:
+    """Two embeddings (on the CPU, N = 69 997, not a multiple of 32) whose
+    Morton-consecutive points, the 32 of a warp, straddle far-apart
+    clusters: every other point in one of two clusters 1e4 apart, and
+    clusters of 7 points on a grid 1e4 apart."""
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    two = torch.randn((69_997, 2), generator=gen)
+    two[1::2] += 1e4
+    cluster = torch.arange(69_997) // 7
+    seven = torch.randn((69_997, 2), generator=gen) * 100.0 + 1e4 * torch.stack(
+        [cluster % 100, cluster // 100], dim=1).to(torch.float32)
+    return {"two clusters 1e4 apart": two, "7-point clusters 1e4 apart": seven}
 
 
 def check_traverse(what: str, y: torch.Tensor) -> None:
@@ -464,7 +505,7 @@ def check_traverse(what: str, y: torch.Tensor) -> None:
     sizes = sorted({min(m, y.shape[0]) for m in (1, 31, 33, 1000, 5000, y.shape[0])})
     for m in sizes:
         for compress in (True, False):
-            y_s, tree, summ = walk_inputs(y[:m].contiguous(), compress)
+            y_s, tree, summ, _ = walk_inputs(y[:m].contiguous(), compress)
             n_nodes = int(tree.n_nodes)
             records = torch.full((tree.capacity, RECORD_WORDS), -1, dtype=torch.int32,
                                  device=y.device)
@@ -590,14 +631,8 @@ def phase_kernels(x: torch.Tensor, k: int, perplexity: float) -> list[dict]:
     check_traverse("random embedding", y)
     check_traverse("duplicate points", y[:n // 3].repeat_interleave(3, 0))
     check_traverse("coincident points", torch.zeros((33, 2), device=dev))
-    far_gen = torch.Generator(device="cpu").manual_seed(19)
-    far = torch.randn((69_997, 2), generator=far_gen)
-    far[1::2] += 1e4
-    check_traverse("two clusters 1e4 apart", far.to(dev))
-    cluster = torch.arange(69_997) // 7
-    far = torch.randn((69_997, 2), generator=far_gen) * 100.0 + 1e4 * torch.stack(
-        [cluster % 100, cluster // 100], dim=1).to(torch.float32)
-    check_traverse("7-point clusters 1e4 apart", far.to(dev))
+    for what, far in far_clusters().items():
+        check_traverse(what, far.to(dev))
 
     # attractive_ell on the real symmetric graph of the main path, with the
     # rows' real lengths (as the fits call it) and over the full width
@@ -842,9 +877,9 @@ def phase_fit(x_np: np.ndarray, method: str, n_iter: int, exag_iters: int,
     with_len = []
     launch_attractive = ops.attractive_ell_cuda
 
-    def attractive_spy(y, cols, vals, row_len=None):
+    def attractive_spy(y, cols, vals, row_len=None, row0=0):
         with_len.append(row_len is not None)
-        return launch_attractive(y, cols, vals, row_len)
+        return launch_attractive(y, cols, vals, row_len, row0)
 
     ops.attractive_ell_cuda = attractive_spy
     ops.reset_launch_counts()
@@ -946,7 +981,7 @@ def phase_traverse(est) -> dict:
     from repro_torch.kernels import ops
     y = torch.as_tensor(est.embedding_).cuda()
     check_traverse("fitted embedding", y)
-    y_s, tree, summ = walk_inputs(y, compress=True)
+    y_s, tree, summ, _ = walk_inputs(y)
     got = ops.bh_traverse(y_s, tree, summ, 0.5)
     n, visits, n_nodes = y.shape[0], int(got.steps.sum()), int(tree.n_nodes)
     sched, union = warp_walk(y_s, pack_nodes(tree, summ), summ.sum_y, tree.n_nodes, 0.5)
@@ -1060,7 +1095,8 @@ def check_same_step(what: str, res, ref, f_rep) -> None:
 
 
 class Laps:
-    """Seconds of consecutive stages, the device synchronised at each mark."""
+    """Seconds of consecutive stages, the device synchronised at each mark;
+    a stage named again adds to its seconds."""
 
     def __init__(self):
         self.t: dict[str, float] = {}
@@ -1070,7 +1106,7 @@ class Laps:
     def __call__(self, name: str) -> None:
         torch.cuda.synchronize()
         now = time.perf_counter()
-        self.t[name] = now - self.mark
+        self.t[name] = self.t.get(name, 0.0) + now - self.mark
         self.mark = now
 
 
@@ -1204,12 +1240,17 @@ RECALL_ROWS = 4096          # sampled rows whose exact neighbours are computed
 TRAIN_ROWS = 60_000         # MNIST's own train split; the other 10 000 are new points
 
 
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def synced_seconds(fn):
-    """(fn(), its seconds, the card synchronised at both ends)."""
-    torch.cuda.synchronize()
+    """(fn(), its seconds, every visible card synchronised at both ends)."""
+    sync_all()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync_all()
     return out, time.perf_counter() - t0
 
 
@@ -1243,21 +1284,28 @@ def check_graph(what: str, x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
     return recall
 
 
+def mouse_sample(k: int):
+    """All of mouse_1p3m on the card, RECALL_ROWS sampled rows and their
+    exact K nearest neighbours (pairwise kernel tiles, self masked)."""
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.kernels import ops
+    x = torch.as_tensor(make_dataset("mouse_1p3m")[0]).cuda()
+    rows = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(17))
+    rows = rows[:RECALL_ROWS].cuda()
+    return x, rows, knn_rows(x, rows, k, ops.pairwise_sq_dists)[0]
+
+
 def phase_approx_knn(k: int) -> dict:
     """rp_forest (default options) and nn_descent on all of mouse_1p3m
     (1 291 337 x 20) on the card: seconds, validity, recall on sampled
     rows.  Then at N = 20 000 the card's rp_forest graph against the CPU's
-    (the same draws)."""
+    (the same draws).  Returns (the summary, (the points on the card, the
+    sampled rows, their exact neighbours)) for phase 13."""
     from repro_torch.core.knn import knn
-    from repro_torch.data.datasets import make_dataset
-    from repro_torch.kernels import ops
     from repro_torch.neighbors import NNDescentNeighbors, RPForestNeighbors, recall_at_k
 
-    x_np, _ = make_dataset("mouse_1p3m")
-    x = torch.as_tensor(x_np).cuda()
+    x, rows, ref_idx = mouse_sample(k)
     n = x.shape[0]
-    rows = torch.randperm(n, generator=torch.Generator().manual_seed(17))[:RECALL_ROWS].cuda()
-    ref_idx, _ = knn_rows(x, rows, k, ops.pairwise_sq_dists)
     out = {}
     for backend in (RPForestNeighbors(), NNDescentNeighbors()):
         torch.cuda.reset_peak_memory_stats()
@@ -1286,7 +1334,7 @@ def phase_approx_knn(k: int) -> dict:
     if same < 0.99 or abs(r_card - r_cpu) > 0.01:
         fail("rp_forest on the card disagrees with the CPU's graph of the same draws")
     out["n20000"] = dict(card_vs_cpu=same, recall_card=r_card, recall_cpu=r_cpu)
-    return out
+    return out, (x, rows, ref_idx)
 
 
 def phase_approx_fit(x_np: np.ndarray, n_iter: int, exag_iters: int, kl_every: int):
@@ -1661,6 +1709,399 @@ def phase_service(est_forest, est_exact, x_np: np.ndarray) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The multi-device path
+# ---------------------------------------------------------------------------
+
+SHARDS = 4                  # phase 13's mesh on one card: Mesh((cuda:0,) * SHARDS)
+POS_SIZES = (33, 5000, 70_000)
+
+
+def all_seconds(fn, reps: int = 3, inner: int = 5) -> float:
+    """Median over ``reps`` of the host seconds of ``inner`` back-to-back
+    calls of ``fn`` over ``inner``, every visible card synchronised before
+    and after (a mesh's cards run at once: one card's events miss the
+    others)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync_all()
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        sync_all()
+        times.append((time.perf_counter() - t0) / inner)
+    return float(np.median(times))
+
+
+def issue_seconds(fn, reps: int = 3) -> float:
+    """Median host seconds until one call of ``fn`` returns, every visible
+    card idle before it and no synchronisation after: the time the host
+    takes to queue the work.  Near the call's synchronised time, the host
+    holds the cards back."""
+    times = []
+    for _ in range(reps):
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    sync_all()
+    return float(np.median(times))
+
+
+def shard_positions(perm: torch.Tensor, shards: int) -> list[torch.Tensor]:
+    """The sorted positions of each of ``shards`` contiguous row blocks,
+    ascending, int32: what core.distributed.local_bh_gradient walks."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return [torch.sort(block).values.to(torch.int32) for block in inv.tensor_split(shards)]
+
+
+def check_pos_walk(what: str, y: torch.Tensor) -> None:
+    """bh_traverse at each of SHARDS row blocks' sorted positions, bit for
+    bit (force, z, steps) against the plain walk at the same positions and
+    against the full walk's rows, at N = 33, 5 000 and all of y, theta 0.5."""
+    from repro_torch.core.repulsive import bh_repulsion_sorted
+    from repro_torch.kernels import ops
+    sizes = sorted({min(m, y.shape[0]) for m in POS_SIZES})
+    for m in sizes:
+        y_s, tree, summ, perm = walk_inputs(y[:m].contiguous())
+        full = ops.bh_traverse(y_s, tree, summ, 0.5)
+        for r, pos in enumerate(shard_positions(perm, SHARDS)):
+            got = ops.bh_traverse(y_s, tree, summ, 0.5, pos=pos)
+            ref = bh_repulsion_sorted(y_s, tree, summ, 0.5, pos=pos)
+            at = pos.long()
+            if not all(torch.equal(a, b) and torch.equal(a, f[at])
+                       for a, b, f in zip(got, ref, full)):
+                fail(f"bh_traverse at positions ({what}, N = {m}, shard {r}) is not "
+                     "bit-identical to the plain walk and the full walk's rows")
+    log(f"bh_traverse at positions, {what}: N = {', '.join(map(str, sizes))}, "
+        f"{SHARDS} shards' sorted positions, theta 0.5: force, z and steps bit-identical "
+        "to the plain walk at the same positions and to the full walk's rows")
+
+
+def check_row0(y: torch.Tensor, g) -> dict:
+    """attractive_ell over each of SHARDS row blocks of the fit's graph with
+    its row offset: bit for bit the full pass's rows (the same warp does
+    the same work), and within phase 3's tolerance of the plain pass with
+    the same offset.  Times the last shard's call."""
+    from repro_torch.core import attractive
+    from repro_torch.kernels import ops
+    n = y.shape[0]
+    full, _ = ops.attractive_ell(y, g.p_cols, g.p_vals, g.p_len)
+    bounds = [(int(b[0]), int(b[-1]) + 1) for b in torch.arange(n).tensor_split(SHARDS)]
+    for r0, r1 in bounds:
+        args = (y, g.p_cols[r0:r1], g.p_vals[r0:r1], g.p_len[r0:r1])
+        f_k, kl_k = ops.attractive_ell(*args, row0=r0)
+        f_p, kl_p = attractive.attractive_forces_ell(*args, row0=r0)
+        f_scale = float(f_p.abs().max())
+        if not torch.equal(f_k, full[r0:r1]):
+            fail(f"attractive_ell with row0 {r0} differs from the full pass's rows")
+        if not (torch.allclose(f_k, f_p, rtol=1e-4, atol=1e-5 * f_scale)
+                and abs(float(kl_k) - float(kl_p)) <= 1e-5 * abs(float(kl_p))):
+            fail(f"attractive_ell with row0 {r0} disagrees with its plain version")
+    r0, r1 = bounds[-1]
+    ms = cuda_ms(lambda: ops.attractive_ell(y, g.p_cols[r0:r1], g.p_vals[r0:r1],
+                                            g.p_len[r0:r1], row0=r0), inner=10)
+    log(f"attractive_ell with row0, {SHARDS} row blocks of the BH fit's graph: bit-identical "
+        f"to the full pass's rows, within rtol 1e-4 of the plain pass; one block "
+        f"(row0 {r0}) {ms:.4f} ms")
+    return dict(row0_ms=ms)
+
+
+def sharded_parts(mesh, est):
+    """The BH fit's embedding and graph, sharded row-wise over ``mesh``."""
+    from repro_torch.core import distributed as dist
+    g = est.neighbor_graph_
+    y = torch.as_tensor(est.embedding_).cuda()
+    if y.shape[0] % mesh.size:
+        fail(f"{y.shape[0]} points do not split over {mesh.size} shards")
+    return y, g, {k: dist.shard_rows(mesh, t) for k, t in
+                  (("y", y), ("cols", g.p_cols), ("vals", g.p_vals), ("lens", g.p_len))}
+
+
+def phase_sharded_gradient(est, mesh, label: str, breakdown: bool) -> dict:
+    """distributed_bh_gradient at the BH fit's embedding against bh_gradient:
+    every row of the repulsive force bit for bit (the same tree, the same
+    positions); Z, the KL and the gradient differ only by the order of the
+    per-shard partial sums: Z and the KL to 1e-5 and 1e-4 relative, the
+    gradient to 1e-5 of the repulsive term 4 F_rep / Z (the fitted
+    gradient is a small difference of the attractive and repulsive terms).
+    Then one sharded descent step (launch.tsne_run.dist_step) against the
+    single-device step, host seconds with every card synchronised; with
+    ``breakdown`` the sharded step stage by stage (stages summed over the
+    shards) and its idle share."""
+    from repro_torch import convert
+    from repro_torch.api import make_backend
+    from repro_torch.core import distributed as dist, morton, quadtree
+    from repro_torch.core.summarize import summarize
+    from repro_torch.core.tsne import (
+        GradResult, TsneConfig, TsneState, bh_gradient, combine_forces, tsne_step,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.launch.tsne_run import dist_step
+
+    y, g, sh = sharded_parts(mesh, est)
+    n, n_loc = y.shape[0], y.shape[0] // mesh.size
+    res = dist.distributed_bh_gradient(mesh, sh["y"], sh["cols"], sh["vals"], g.p_logp,
+                                       theta=0.5, exaggeration=1.0, p_len=sh["lens"])
+    ref = bh_gradient(y, g.p_cols, g.p_vals, None, 0.5, 1.0, 16, g.p_logp, p_len=g.p_len)
+    y_s, tree, summ, perm = walk_inputs(y)
+    f_rep = torch.empty_like(y)
+    f_rep[perm] = ops.bh_traverse(y_s, tree, summ, 0.5).force
+    local = [dist.local_bh_gradient(y.to(dev), r, n_loc, sh["cols"][r], sh["vals"][r],
+                                    sh["lens"][r], theta=0.5)
+             for r, dev in enumerate(mesh.devices)]
+    same_rows = torch.equal(dist.gather_rows([p.f_rep for p in local], y.device), f_rep)
+    grad = dist.gather_rows(res.grad, y.device)
+    term = float(torch.linalg.norm(4.0 * f_rep / ref.z))
+    rel = float(torch.linalg.norm(grad - ref.grad)) / term
+    z_rel = abs(float(res.z) - float(ref.z)) / float(ref.z)
+    kl_rel = abs(float(res.kl) - float(ref.kl)) / abs(float(ref.kl))
+    log(f"sharded gradient ({label}) at the BH fit's embedding: f_rep rows bit-identical "
+        f"{same_rows}; |d grad| / |4 F_rep / Z| {rel:.3e}, Z relative {z_rel:.3e}, KL "
+        f"{float(res.kl):.6f} against {float(ref.kl):.6f} (relative {kl_rel:.3e})")
+    if not same_rows or rel > 1e-5 or z_rel > 1e-5 or kl_rel > 1e-4:
+        fail(f"the sharded gradient ({label}) disagrees with bh_gradient")
+
+    lr = est.learning_rate_
+    state = TsneState(y=y, velocity=torch.zeros_like(y), gains=torch.ones_like(y), iteration=0)
+    states = convert.shard_state(mesh, state)
+    backend = make_backend("barnes_hut", TsneConfig(), n)
+
+    def single():
+        return tsne_step(state, g, 1.0, 0.8, backend=backend, lr=lr, min_gain=0.01)
+
+    def sharded():
+        return dist_step(mesh, states, sh["cols"], sh["vals"], sh["lens"], theta=0.5,
+                         exag=1.0, mom=0.8, lr=lr, min_gain=0.01)
+
+    out = dict(shards=mesh.size, f_rep_bit_identical=same_rows, grad_rel=rel, z_rel=z_rel,
+               kl_rel=kl_rel, single_step_s=all_seconds(single),
+               sharded_step_s=all_seconds(sharded), single_issue_s=issue_seconds(single),
+               sharded_issue_s=issue_seconds(sharded))
+    out["sharded_over_single"] = out["sharded_step_s"] / out["single_step_s"]
+    if breakdown:
+        runs = []
+        for _ in range(3):
+            lap = Laps()
+            y_full = dist.all_gather(mesh, sh["y"])
+            lap("all_gather")
+            parts = []
+            for r in range(mesh.size):
+                yf = y_full[r]
+                cent, r_span = morton.span_radius(yf)
+                codes = ops.morton_encode(yf, cent, r_span)
+                lap("morton_encode")
+                codes_s, ys, pm = quadtree.sort_points_by_code(yf, codes)
+                lap("sort")
+                tr = quadtree.build_quadtree(codes_s)
+                lap("build_quadtree")
+                sm = summarize(tr, ys, r_span)
+                lap("summarize")
+                inv = torch.empty_like(pm)
+                inv[pm] = torch.arange(n, device=pm.device)
+                pos, order = torch.sort(inv[r * n_loc:(r + 1) * n_loc])
+                lap("positions")
+                rep = ops.bh_traverse(ys, tr, sm, 0.5, pos=pos.to(torch.int32))
+                fr = torch.empty_like(rep.force)
+                fr[order] = rep.force
+                lap("traversal")
+                fa, kla = ops.attractive_ell(yf, sh["cols"][r], sh["vals"][r], sh["lens"][r],
+                                             row0=r * n_loc)
+                lap("attractive")
+                parts.append((fr, fa, torch.sum(rep.z_per_point), kla))
+            z = dist.psum(mesh, [p[2] for p in parts])
+            kl_attr = dist.psum(mesh, [p[3] for p in parts])
+            got = [combine_forces(p[1], kl_attr[r], p[0], z[r], 1.0, g.p_logp)
+                   for r, p in enumerate(parts)]
+            dist.gd_update_sharded(mesh, states, [r.grad for r in got], lr, 0.8, 0.01)
+            lap("psum_combine_update")
+            runs.append(lap.t)
+        check_same_step("sharded", GradResult(dist.gather_rows([r.grad for r in got]),
+                                              got[0].kl, got[0].z, got[0].max_traversal),
+                        GradResult(grad, res.kl, res.z, res.max_traversal), f_rep)
+        out["stages"] = median_laps(runs)
+        out["stages"]["tree_share"] = (out["stages"]["build_quadtree"]
+                                       + out["stages"]["summarize"]) / out["stages"]["total"]
+        add_busy_share(out, sharded, inner=3)
+    log(f"sharded step ({label}): " + json.dumps(out))
+    return out
+
+
+def phase_ring_knn(x: torch.Tensor, mesh, label: str, ref) -> dict:
+    """ring_knn of MNIST over ``mesh`` against the main path's exact KNN
+    (``ref``: its idx and d2): the row sets the same in >= 99.9% of rows
+    (ties at the k-th distance fall in another order: the ring keeps the
+    earlier hop's), the sorted distances within pairwise's tolerance."""
+    from repro_torch.core import distributed as dist
+    ref_i, ref_d = ref
+    k = ref_i.shape[1]
+    (idx, d2), secs = synced_seconds(
+        lambda: dist.ring_knn(mesh, dist.shard_rows(mesh, x), k))
+    idx, d2 = dist.gather_rows(idx, x.device), dist.gather_rows(d2, x.device)
+    same = float((torch.sort(idx, 1).values == torch.sort(ref_i, 1).values).all(1)
+                 .double().mean())
+    sqn = torch.sum(x * x, 1)
+    share = float(((d2 - ref_d).abs() / pairwise_tol(ref_d, sqn[:, None],
+                                                      sqn[ref_i.long()])).max())
+    out = dict(shards=mesh.size, seconds=secs, same_rows=same, d2_tol_share=share)
+    log(f"ring_knn ({label}) on MNIST [{x.shape[0]}, {x.shape[1]}], K = {k}: {secs:.3f} s; "
+        f"row sets equal to the exact KNN's in {same:.6f} of rows (>= 0.999); d2 "
+        f"{share:.3f} of pairwise's tolerance at most")
+    if same < 0.999 or share > 1.0:
+        fail(f"ring_knn ({label}) disagrees with the exact KNN")
+    return out
+
+
+def phase_ring_knn_approx(mesh, label: str, mouse, k: int) -> dict:
+    """ring_knn_approx with its defaults (8 trees of >= 64 points a shard,
+    blocks of 4 096 rows) on all of mouse_1p3m over ``mesh``, zero-padded
+    to a shard multiple as the sharded backend pads: seconds, peak memory,
+    every row valid, d2 true and recall@K on phase 9's sampled rows."""
+    from repro_torch.core import distributed as dist
+    x, rows, ref_idx = mouse
+    n = x.shape[0]
+    xp = torch.nn.functional.pad(x, (0, 0, 0, (-n) % mesh.size))
+    torch.cuda.reset_peak_memory_stats()
+    (idx, d2), secs = synced_seconds(
+        lambda: dist.ring_knn_approx(mesh, dist.shard_rows(mesh, xp), k, n_valid=n))
+    idx, d2 = dist.gather_rows(idx, x.device)[:n], dist.gather_rows(d2, x.device)[:n]
+    recall = check_graph(f"ring_knn_approx ({label}) on mouse_1p3m [{n}, {x.shape[1]}], "
+                         f"K = {k}", x, idx, d2, rows, ref_idx)
+    out = dict(shards=mesh.size, seconds=secs, recall=recall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"ring_knn_approx ({label}): " + json.dumps(out))
+    return out
+
+
+def phase_collectives(x: torch.Tensor, mesh) -> dict:
+    """The copies between cards behind the collectives: which pairs have
+    peer access, one ring hop of MNIST's shards (ring_knn's hop, rank r
+    receiving rank r - 1's [N / S, 784] rows) timed alone (bytes/s), and
+    the host's seconds to issue that hop behind ~10 queued matrix
+    products on every card (the hop waits for them on the cards; if it
+    also holds the host, its issue time shows it)."""
+    from repro_torch.core import distributed as dist
+    idx = [d.index for d in mesh.devices]
+    peer = [[i == j or torch.cuda.can_device_access_peer(i, j) for j in idx] for i in idx]
+    parts = dist.shard_rows(mesh, x)
+    nbytes = sum(p.numel() * p.element_size() for p in parts)
+    dist.ring_permute(mesh, parts)
+    (_, hop_s) = synced_seconds(lambda: dist.ring_permute(mesh, parts))
+    mats = [torch.randn((8192, 8192), device=d) for d in mesh.devices]
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        for m in mats:
+            m @ m
+    queued = time.perf_counter()
+    dist.ring_permute(mesh, parts)
+    issued = time.perf_counter()
+    sync_all()
+    out = dict(peer_access=peer, hop_bytes=nbytes, hop_s=hop_s, hop_gb_s=nbytes / hop_s / 1e9,
+               queue_s=queued - t0, hop_issue_behind_queue_s=issued - queued,
+               queue_done_s=time.perf_counter() - t0)
+    log(f"collectives ({mesh.size} cards): " + json.dumps(out))
+    return out
+
+
+def phase_sharded_fit(mesh, label: str, x_np: np.ndarray, args, bh_kl: float) -> tuple:
+    """launch.tsne_run.run_distributed over ``mesh`` on MNIST, the BH fit's
+    steps and schedules, its launch counts reset before and read after:
+    morton, attractive and bh_traverse once a shard a step, pairwise > 0,
+    bsp once; the final KL with sum p log p added back within 2% of the BH
+    fit's (phase 5).  Returns (summary, launches)."""
+    from repro_torch.core.tsne import TsneConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.tsne_run import run_distributed
+    cfg = TsneConfig(perplexity=30.0, exaggeration_iters=args.exaggeration_iters,
+                     momentum_switch_iter=args.exaggeration_iters)
+    ops.reset_launch_counts()
+    run = run_distributed(mesh, x_np, cfg, args.n_iter)
+    sync_all()
+    launches = dict(ops.LAUNCHES)
+    kl = run.kl + run.p_logp
+    out = dict(shards=mesh.size, n=run.n, steps=args.n_iter, kl=kl, bh_fit_kl=bh_kl,
+               kl_rel=abs(kl - bh_kl) / abs(bh_kl), **run.timings,
+               step_s=run.timings["descent"] / args.n_iter, launches=launches,
+               kl_history=[[i, v + run.p_logp] for i, v in run.kl_history])
+    log(f"sharded fit ({label}): " + json.dumps(out))
+    if not np.isfinite(run.y).all() or run.y.shape != (run.n, 2):
+        fail(f"the sharded fit ({label}) gave a non-finite embedding")
+    if out["kl_rel"] > 0.02:
+        fail(f"the sharded fit's KL {kl} ({label}) is not within 2% of the BH fit's {bh_kl}")
+    per_step = {k: launches[k] for k in ("morton_encode", "attractive_ell", "bh_traverse")}
+    if any(v != mesh.size * args.n_iter for v in per_step.values()):
+        fail(f"the sharded fit ({label}) ran {args.n_iter} steps on {mesh.size} shards but "
+             f"launched {per_step}")
+    if launches["pairwise_sq_dists"] <= 0 or launches["bsp_search"] != 1:
+        fail(f"the sharded fit's graph ({label}) launched {launches}")
+    return out, launches
+
+
+def phase_sharded_preprocess(x: torch.Tensor) -> dict:
+    """preprocess with TsneConfig(neighbor_method="sharded") (the approximate
+    ring's defaults over every visible card) on MNIST: the graph's
+    invariants and the seconds of each stage."""
+    from repro_torch.core.tsne import TsneConfig, preprocess
+    cfg = TsneConfig(perplexity=30.0, neighbor_method="sharded")
+    (graph, timings), secs = synced_seconds(lambda: preprocess(x, cfg))
+    cols, vals = graph.p_cols, graph.p_vals
+    total = float(vals.double().sum())
+    ok = (timings["neighbor_method"] == "sharded"
+          and bool(((cols >= 0) & (cols < x.shape[0])).all())
+          and bool(torch.isfinite(vals).all()) and bool((vals >= 0).all())
+          and abs(total - 1.0) <= 1e-4)
+    out = dict(seconds=secs, cards=torch.cuda.device_count(), p_sum=total,
+               **{k: timings[k] for k in ("knn", "bsp", "symmetrize")})
+    log("sharded preprocess through TsneConfig(neighbor_method='sharded'): " + json.dumps(out))
+    if not ok:
+        fail("the sharded preprocess broke the graph's invariants")
+    return out
+
+
+def phase_sharded(est, x: torch.Tensor, x_np: np.ndarray, mouse, args) -> tuple:
+    """Phase 13 on Mesh((cuda:0,) * SHARDS), then (the gradient, the rings
+    and the fit) on every card when more than one is visible.  Returns
+    (the one-card mesh's fit launches, extra keys of the kernels line's
+    rows)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.knn import knn
+    from repro_torch.kernels import ops
+    y = torch.as_tensor(est.embedding_).cuda()
+    check_pos_walk("the BH fit's embedding", y)
+    for what, far in far_clusters().items():
+        check_pos_walk(what, far.cuda())
+    extra = {"attractive_ell": check_row0(y, est.neighbor_graph_)}
+    y_s, tree, summ, perm = walk_inputs(y)
+    pos = shard_positions(perm, SHARDS)[-1]
+    extra["bh_traverse"] = dict(pos_ms=cuda_ms(
+        lambda: ops.bh_traverse(y_s, tree, summ, 0.5, pos=pos), inner=10))
+    log(f"bh_traverse of one shard's {pos.shape[0]} positions at the BH fit's embedding: "
+        f"{extra['bh_traverse']['pos_ms']:.4f} ms")
+
+    one = dist.Mesh((torch.device("cuda", 0),) * SHARDS)
+    label = f"{SHARDS} shards on cuda:0"
+    ref = knn(x, est.n_neighbors_, KNN_BLOCK_Q, KNN_BLOCK_DB)     # the main path's exact KNN
+    summary = dict(gradient=phase_sharded_gradient(est, one, label, breakdown=True),
+                   ring_knn=phase_ring_knn(x, one, label, ref),
+                   ring_knn_approx=phase_ring_knn_approx(one, label, mouse, est.n_neighbors_))
+    summary["fit"], launches = phase_sharded_fit(one, label, x_np, args, est.kl_divergence_)
+    if torch.cuda.device_count() > 1:
+        every = dist.make_mesh(torch.cuda.device_count())
+        label = f"{every.size} cards"
+        summary["cards"] = dict(
+            collectives=phase_collectives(x, every),
+            gradient=phase_sharded_gradient(est, every, label, breakdown=False),
+            ring_knn=phase_ring_knn(x, every, label, ref),
+            ring_knn_approx=phase_ring_knn_approx(every, label, mouse, est.n_neighbors_),
+            fit=phase_sharded_fit(every, label, x_np, args, est.kl_divergence_)[0])
+    summary["preprocess"] = phase_sharded_preprocess(x)
+    log("sharded summary: " + json.dumps(summary))
+    return launches, extra
+
+
 BH_KERNELS = ("pairwise_sq_dists", "bsp_search", "morton_encode", "attractive_ell",
               "bh_traverse")
 FFT_KERNELS = ("pairwise_sq_dists", "bsp_search", "attractive_ell", "fft_spread",
@@ -1674,6 +2115,9 @@ def main() -> None:
     ap.add_argument("--exaggeration-iters", type=int, default=250,
                     help="exaggerated steps of both fits (default: 250, the estimator's)")
     ap.add_argument("--kl-every", type=int, default=50)
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="phases 1, 2, 5 (phase 13's input, untraced) and 13 alone, for a "
+                         "machine with several cards; no kernels line")
     args = ap.parse_args()
 
     phase_device()
@@ -1684,25 +2128,33 @@ def main() -> None:
     x_np, labels = make_dataset("mnist")
     x = torch.as_tensor(x_np).cuda()
     perplexity = 30.0
+    fit_steps = (args.n_iter, args.exaggeration_iters, args.kl_every)
+    if args.sharded_only:
+        bh_est, _ = phase_fit(x_np, "barnes_hut", *fit_steps)
+        phase_sharded(bh_est, x, x_np, mouse_sample(bh_est.n_neighbors_), args)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
 
-    fit_steps = (args.n_iter, args.exaggeration_iters, args.kl_every)
-    est, bh_launches = phase_fit(x_np, "barnes_hut", *fit_steps, trace=True)
+    bh_est, bh_launches = phase_fit(x_np, "barnes_hut", *fit_steps, trace=True)
     check_launches("barnes_hut", bh_launches, BH_KERNELS,
-                   ("morton_encode", "attractive_ell", "bh_traverse"), est.n_iter_)
-    rows.append(phase_traverse(est))
-    phase_breakdown(est)
+                   ("morton_encode", "attractive_ell", "bh_traverse"), bh_est.n_iter_)
+    rows.append(phase_traverse(bh_est))
+    phase_breakdown(bh_est)
     est, fft_launches = phase_fit(x_np, "fft", *fit_steps, trace=True)
     check_launches("fft", fft_launches, FFT_KERNELS,
                    ("attractive_ell", "fft_spread", "fft_gather"), est.n_iter_)
     check_reproducible(est)
     fft_breakdown = phase_fft_breakdown(est)
 
-    phase_approx_knn(int(3 * perplexity))
+    _, mouse = phase_approx_knn(int(3 * perplexity))
     est_rp, est_ex = phase_approx_fit(x_np, *fit_steps)
     phase_transform(est_rp, x_np, labels)
     service = phase_service(est_rp, est_ex, x_np)
+    sharded_launches, sharded_extra = phase_sharded(bh_est, x, x_np, mouse, args)
 
     unlaunched = [k for k in ops.LAUNCHES if bh_launches[k] + fft_launches[k] == 0]
     if unlaunched:
@@ -1715,6 +2167,8 @@ def main() -> None:
             r["service_launches"] = service["launches"].get(r["name"], 0)
         if r["name"] in ("fft_spread", "fft_gather"):
             r["fitted_device_ms"] = fft_breakdown[f"{r['name'][4:]}_device_ms"]
+        r["sharded_launches"] = sharded_launches[r["name"]]
+        r.update(sharded_extra.get(r["name"], {}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,11 +39,12 @@ inputs with a random potential and on a copy at no 16-byte boundary:
 checked against the plain gather and for a bit-identical second call.
 Both sets print registers, device ms and CUDA-event ms, two rounds.
 
-With ``--baseline DIR`` the spread.cu, bsp.cu and gather.cu of another
-checkout (unpacked at DIR, e.g. the parent commit's) are timed on the same
-inputs (the spread's zeroing separately); the gather set checks that the
-two gathers give the same bits, and times the other gather before and
-after each round.  ``knn`` times the knn phase at MNIST size with the
+With ``--baseline DIR`` the spread.cu, bsp.cu, gather.cu and traverse.cu
+of another checkout (unpacked at DIR, e.g. the parent commit's) are timed
+on the same inputs (the spread's zeroing separately); the gather set
+checks that the two gathers give the same bits, and times the other
+gather before and after each round; the traverse set pairs the other
+walk with this one in place of the earlier kernel.  ``knn`` times the knn phase at MNIST size with the
 port's merge of the chunks (torch.topk over distance-index keys) beside
 a stable sort and the tie-blind torch.topk.  ``traverse`` times
 ``traverse.cu`` (a pack kernel, then a thread a point over the packed
@@ -679,19 +680,19 @@ TRAVERSE = {
          "constexpr int TOP = 512;\n__shared__ Node top[TOP];\n\n"
          "__device__ __forceinline__ Node load_node(const Node* __restrict__ nodes, int k) {\n"
          "  if (k < TOP) return top[k];\n"),
-        ("  if (p >= n) return;\n  const int nn = valid_nodes(n_nodes, cap);\n",
-         "  const int nn = valid_nodes(n_nodes, cap);\n"
-         "  for (int k = threadIdx.x; k < min(TOP, nn); k += THREADS) {\n"
-         "    top[k].f = __ldg(&nodes[k].f);\n    top[k].i = __ldg(&nodes[k].i);\n  }\n"
-         "  __syncthreads();\n  if (p >= n) return;\n")],
+        ("  if (i >= n) return;\n",
+         "  {\n    const int nn = valid_nodes(n_nodes, cap);\n"
+         "    for (int k = threadIdx.x; k < min(TOP, nn); k += THREADS) {\n"
+         "      top[k].f = __ldg(&nodes[k].f);\n      top[k].i = __ldg(&nodes[k].i);\n    }\n"
+         "    __syncthreads();\n  }\n  if (i >= n) return;\n")],
     # one CTA an SM: ceil(warps / SMs) warps a CTA, so that each SM walks
     # one contiguous run of points
     "cta_per_sm": [
         ("constexpr int THREADS = 256;", "constexpr int THREADS = 1024;"),
-        ("const int p = blockIdx.x * THREADS + threadIdx.x;\n  if (p >= n) return;",
-         "const int p = blockIdx.x * blockDim.x + threadIdx.x;\n  if (p >= n) return;"),
-        ("traverse_walk_kernel<<<blocks(n, THREADS), THREADS, 0, s>>>(",
-         "traverse_walk_kernel<<<blocks(n, sm_threads(n)), sm_threads(n), 0, s>>>("),
+        ("const int i = blockIdx.x * THREADS + threadIdx.x;",
+         "const int i = blockIdx.x * blockDim.x + threadIdx.x;"),
+        ("traverse_walk_kernel<false><<<blocks(n, THREADS), THREADS, 0, s>>>(",
+         "traverse_walk_kernel<false><<<blocks(n, sm_threads(n)), sm_threads(n), 0, s>>>("),
         ("}  // namespace\n",
          "int sm_threads(int n) {\n  int dev = 0, sms = 1;\n  cudaGetDevice(&dev);\n"
          "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
@@ -725,9 +726,14 @@ TRAVERSE_PAIRS = {
 # beside chip_variants.py, not in csrc/, which holds the port's kernels only
 VARIANTS = ROOT / "variants"
 _ARRAYS_ARGTYPES = [P] * 8 + [ctypes.c_float] + [P] * 3 + [I, I, P]
+# the C entry before the walk took positions (the sharded gradient's
+# ``pos``): traverse_warp.cu, traverse_pairs.cu and a --baseline checkout's
+# traverse.cu from before it
+_RECORDS_ARGTYPES = [P] * 8 + [ctypes.c_float] + [P] * 4 + [I, I, P]
 
 
-def run_traverse(x_np: np.ndarray, stream: int, pairs: int = 10) -> None:
+def run_traverse(x_np: np.ndarray, stream: int, baseline: Path | None,
+                 pairs: int = 10) -> None:
     """The port's kernel (csrc/traverse.cu: pack, then a thread a point over
     the packed records) and its variants, the warp-shared and the
     two-lanes-a-point designs and their variants, and the earlier kernel
@@ -740,7 +746,10 @@ def run_traverse(x_np: np.ndarray, stream: int, pairs: int = 10) -> None:
     ``pairs`` alternating pairs earlier kernel / port's (CUDA-event ms of
     10 back-to-back calls, median of 7; device ms of each kernel by
     torch.profiler), every variant twice, and the whole descent step with
-    either kernel (run_traverse_step)."""
+    either kernel (run_traverse_step).  With ``baseline`` the other
+    checkout's traverse.cu (built as "baseline") takes the earlier
+    kernel's place in the pairs: the walk without positions against the
+    same walk before the C entry took them."""
     from repro_torch.api import TSNE
     from repro_torch.core import morton, quadtree, summarize
     from repro_torch.core.repulsive import (
@@ -760,6 +769,12 @@ def run_traverse(x_np: np.ndarray, stream: int, pairs: int = 10) -> None:
     libs["arrays"] = build_variants("traverse", {"arrays": []},
                                     path=VARIANTS / "traverse_arrays.cu",
                                     tag="traverse_arrays")["arrays"]
+    if baseline is not None:
+        libs["baseline"] = build_variants(
+            "traverse", {"baseline": []}, path=baseline / "src/repro_torch/csrc/traverse.cu",
+            tag="traverse-other")["baseline"]
+    older = {"arrays"} | set(TRAVERSE_WARP) | set(TRAVERSE_PAIRS) | {"baseline"}
+    earlier = "baseline" if baseline is not None else "arrays"
     symbol, argtypes = ops._SIGNATURES["traverse"]
     kernels = {name: ("traverse_kernel",) if name == "arrays"
                else ("traverse_pack", "traverse_walk") for name in libs}
@@ -777,13 +792,20 @@ def run_traverse(x_np: np.ndarray, stream: int, pairs: int = 10) -> None:
         tree_args = (y_s.data_ptr(), tree.start.data_ptr(), tree.end.data_ptr(),
                      tree.skip.data_ptr(), tree.n_nodes.data_ptr(), summ.count.data_ptr(),
                      summ.sum_y.data_ptr(), summ.side.data_ptr(), t2)
-        out_args = tuple(t.data_ptr() for t in out) + (n, cap, stream)
+        outs = tuple(t.data_ptr() for t in out)
         calls = {}
         for name, (lib, regs) in libs.items():
             fn = getattr(lib, symbol)
-            fn.argtypes = _ARRAYS_ARGTYPES if name == "arrays" else argtypes
             fn.restype = ctypes.c_int
-            args = tree_args + (() if name == "arrays" else (records.data_ptr(),)) + out_args
+            if name == "arrays":
+                fn.argtypes = _ARRAYS_ARGTYPES
+                args = tree_args + outs + (n, cap, stream)
+            elif name in older:
+                fn.argtypes = _RECORDS_ARGTYPES
+                args = tree_args + (records.data_ptr(),) + outs + (n, cap, stream)
+            else:      # no positions: every point in order
+                fn.argtypes = argtypes
+                args = tree_args + (records.data_ptr(), None) + outs + (n, n, cap, stream)
 
             def call(fn=fn, args=args, name=name):
                 err = fn(*args)
@@ -819,7 +841,7 @@ def run_traverse(x_np: np.ndarray, stream: int, pairs: int = 10) -> None:
                         recorded={k: d["recorded"] for k, d in dev.items()})
 
         for i in range(pairs):
-            for name in ("arrays", "base") if i % 2 == 0 else ("base", "arrays"):
+            for name in (earlier, "base") if i % 2 == 0 else ("base", earlier):
                 print(json.dumps(dict(kernel="traverse", input=what, pair=i, variant=name,
                                       **timing(name))), flush=True)
         for rnd in range(2):
@@ -841,7 +863,9 @@ def run_traverse_step(est, arrays_lib, pairs: int) -> None:
     fn = getattr(arrays_lib, ops._SIGNATURES["traverse"][0])
     fn.argtypes, fn.restype = _ARRAYS_ARGTYPES, ctypes.c_int
 
-    def arrays_cuda(y_s, tree, summ, theta, records=None):
+    def arrays_cuda(y_s, tree, summ, theta, records=None, pos=None):
+        if pos is not None:
+            raise ValueError("the earlier kernel walks every point: no pos")
         n = y_s.shape[0]
         out = RepulsionResult(torch.empty((n, 2), device=y_s.device),
                               torch.empty((n,), device=y_s.device),
@@ -1159,7 +1183,7 @@ def main() -> None:
     if "knn" in sets:
         run_knn(x)
     if "traverse" in sets:
-        run_traverse(x_np, stream)
+        run_traverse(x_np, stream, args.baseline)
     if "spread" in sets:
         run_spread(x_np, stream, args.baseline)
     if "gather" in sets:

@@ -1,9 +1,10 @@
 """The state that crosses between ``repro`` and ``repro_torch``, from numpy.
 
 t-SNE has no weights.  What one package's run hands the other is the
-fitted sparse input-similarity graph, the descent state and a fitted
-random-projection forest; they cross as numpy arrays (never framework
-objects), so this module needs nothing of the JAX package.
+fitted sparse input-similarity graph, the descent state (whole, or split
+over a device mesh by :func:`shard_state`) and a fitted random-projection
+forest; they cross as numpy arrays (never framework objects), so this
+module needs nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -52,6 +53,16 @@ def state_from_numpy(y, velocity=None, gains=None, iteration: int = 0, *,
     gn = torch.ones_like(y_t) if gains is None \
         else torch.tensor(np.asarray(gains), device=dev).to(dtype)
     return TsneState(y=y_t, velocity=vel, gains=gn, iteration=int(np.asarray(iteration)))
+
+
+def shard_state(mesh, state: TsneState) -> list[TsneState]:
+    """A carried-across :class:`TsneState` split row-wise over a
+    ``core.distributed.Mesh``: shard r holds rows ``r * N / S ..`` of y,
+    velocity and gains on ``mesh.devices[r]`` (N divisible by S)."""
+    from repro_torch.core.distributed import shard_rows   # lazy: distributed builds on core
+    parts = (shard_rows(mesh, t) for t in (state.y, state.velocity, state.gains))
+    return [TsneState(y=y, velocity=v, gains=g, iteration=state.iteration)
+            for y, v, g in zip(*parts)]
 
 
 def forest_index_from_numpy(x_ref, leaves, dirs, thrs, *, device=None) -> RPForestIndex:

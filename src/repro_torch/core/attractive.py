@@ -20,25 +20,28 @@ ELL_IMPLS = ("ell", "components", "blocked")
 
 
 def attractive_forces_ell(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-                          row_len: torch.Tensor | None = None):
+                          row_len: torch.Tensor | None = None, row0: int = 0):
     """Algorithm 2 over the symmetric ELL matrix.
 
     y       : [N, 2]      embedding points
-    cols    : [N, W] int  neighbor indices (padding: col = row index)
-    vals    : [N, W]      symmetric p_ij (already / 2N; padding: 0)
-    row_len : [N] int     real entries of each row, or None (all W); the
+    cols    : [M, W] int  neighbor indices into y (padding: col = row0 + row)
+    vals    : [M, W]      symmetric p_ij (already / 2N; padding: 0)
+    row_len : [M] int     real entries of each row, or None (all W); the
                           entries at or past it are masked to padding
+    row0    : int         row i of cols is the point y[row0 + i] (a shard's
+                          rows of the graph against the global y; 0 and
+                          M = N for the whole graph)
 
-    Returns (force [N, 2], kl_attr scalar).
+    Returns (force [M, 2], kl_attr scalar).
     """
+    m, w = cols.shape
     if row_len is not None:
-        n, w = cols.shape
         real = torch.arange(w, device=cols.device)[None, :] < row_len[:, None]
-        rows = torch.arange(n, dtype=cols.dtype, device=cols.device)[:, None]
+        rows = torch.arange(row0, row0 + m, dtype=cols.dtype, device=cols.device)[:, None]
         cols = torch.where(real, cols, rows)
         vals = torch.where(real, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
-    yj = y[cols.long()]                            # [N, W, 2]
-    diff = y[:, None, :] - yj
+    yj = y[cols.long()]                            # [M, W, 2]
+    diff = y[row0:row0 + m, None, :] - yj
     d2 = torch.sum(diff * diff, dim=-1)
     pq = vals / (1.0 + d2)
     force = torch.sum(pq[..., None] * diff, dim=1)

@@ -51,16 +51,26 @@ def theta_squared(theta: float) -> float:
 
 
 def bh_repulsion_sorted(y_sorted: torch.Tensor, tree: LinearQuadtree,
-                        summary: TreeSummary, theta: float) -> RepulsionResult:
-    """Barnes-Hut repulsion for points in Morton-sorted order."""
-    n = y_sorted.shape[0]
+                        summary: TreeSummary, theta: float,
+                        pos: torch.Tensor | None = None) -> RepulsionResult:
+    """Barnes-Hut repulsion for points in Morton-sorted order.
+
+    ``pos`` [M] int (None: every position in order) walks only the points
+    at those sorted positions, in any order: row i of the result is the
+    point at ``pos[i]``, bit for bit the row the full walk gives it (the
+    sharded gradient walks one shard's points this way)."""
     dev = y_sorted.device
     dtype = y_sorted.dtype
     theta2 = theta_squared(theta)
     cap = tree.capacity
     not_leaf = ~tree.is_leaf
     side2 = summary.side * summary.side
-    p = torch.arange(n, device=dev)
+    if pos is None:
+        p = torch.arange(y_sorted.shape[0], device=dev)
+    else:
+        p = pos.to(torch.int64)
+        y_sorted = y_sorted[p]
+    n = p.shape[0]
 
     ptr = torch.zeros(n, dtype=torch.int64, device=dev)
     force = torch.zeros((n, 2), dtype=dtype, device=dev)

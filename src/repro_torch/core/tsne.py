@@ -73,6 +73,7 @@ class TsneConfig:
     neighbor_options: Mapping[str, Any] | tuple | None = None
     knn_block_q: int = 512
     knn_block_db: int = 2048
+    knn_shards: int | None = None         # 'sharded' neighbours: mesh size (None = all)
     # rows per preprocessing slice for BSP and symmetrization (None = whole)
     chunk_size: int | None = None
     # kept so a JAX config carries across; the tensor's device, not these
@@ -113,6 +114,9 @@ class TsneConfig:
             opts.setdefault("block_db", self.knn_block_db)
         elif self.neighbor_method in ("rp_forest", "nn_descent"):
             opts.setdefault("seed", self.seed)
+        elif self.neighbor_method == "sharded":
+            opts.setdefault("seed", self.seed)
+            opts.setdefault("shards", self.knn_shards)
         return opts
 
     def resolve_chunk_size(self, n: int) -> int | None:
@@ -206,13 +210,19 @@ def bh_gradient(y, p_cols, p_vals, edges, theta: float, exaggeration: float,
 
 def gd_update(state: TsneState, grad, lr: float, momentum: float,
               min_gain: float) -> TsneState:
+    moved = gd_move(state, grad, lr, momentum, min_gain)
+    return moved._replace(y=moved.y - torch.mean(moved.y, dim=0, keepdim=True))
+
+
+def gd_move(state: TsneState, grad, lr: float, momentum: float,
+            min_gain: float) -> TsneState:
+    """:func:`gd_update` before it re-centres y: gains, velocity, y + velocity.
+    The sharded descent centres on the mean over all shards instead."""
     same_sign = (grad > 0) == (state.velocity > 0)
     gains = torch.where(same_sign, state.gains * 0.8, state.gains + 0.2)
     gains = torch.clamp_min(gains, min_gain)
     velocity = momentum * state.velocity - lr * gains * grad
-    y = state.y + velocity
-    y = y - torch.mean(y, dim=0, keepdim=True)
-    return TsneState(y=y, velocity=velocity, gains=gains,
+    return TsneState(y=state.y + velocity, velocity=velocity, gains=gains,
                      iteration=state.iteration + 1)
 
 

@@ -26,7 +26,10 @@
 // dependent loads.  The force and KL partial sums are combined with warp
 // shuffles and lane 0 writes F_i and the row's KL partial.  The caller
 // sums the [N] partials (torch.sum), so the result is deterministic: no
-// atomics anywhere.
+// atomics anywhere.  row0 serves a shard's rows of the graph against the
+// global y (the sharded gradient): row i of cols is the point y[row0 + i],
+// so that point is y_i and a padding slot's column; cols, vals, row_len,
+// force and kl_rows stay indexed by the local row.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -45,12 +48,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 __global__ void __launch_bounds__(WARPS * 32)
 attractive_kernel(const float2* __restrict__ y, const int32_t* __restrict__ cols,
                   const float* __restrict__ vals, const int32_t* __restrict__ row_len,
-                  float2* __restrict__ force, float* __restrict__ kl_rows, int n, int w) {
+                  float2* __restrict__ force, float* __restrict__ kl_rows, int n, int w,
+                  int row0) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= n) return;   // warp-uniform
   const int len = row_len ? min(__ldg(row_len + row), w) : w;   // < 0: no entry
-  const float2 yi = __ldg(y + row);
+  const int self = row0 + row;   // the row's point in y
+  const float2 yi = __ldg(y + self);
   const int32_t* c = cols + (size_t)row * w;
   const float* v = vals + (size_t)row * w;
   float fx = 0.0f, fy = 0.0f, kl = 0.0f;
@@ -62,7 +67,7 @@ attractive_kernel(const float2* __restrict__ y, const int32_t* __restrict__ cols
       const int j = base + 32 * u + lane;
       const bool real = j < len;
       // a slot past the row's end is a padding entry: y_j = y_i, p = 0
-      col[u] = real ? __ldg(c + j) : row;
+      col[u] = real ? __ldg(c + j) : self;
       p[u] = real ? __ldg(v + j) : 0.0f;
     }
     float2 yj[UNROLL];
@@ -90,17 +95,18 @@ attractive_kernel(const float2* __restrict__ y, const int32_t* __restrict__ cols
 
 }  // namespace
 
-// y [n, 2] fp32 (8-byte aligned), cols [n, w] int32 (every entry in
-// [0, n)), vals [n, w] fp32, row_len [n] int32 or null (every row w long)
-// -> force [n, 2], kl_rows [n].  Entries at or past row_len[i], clamped
-// into [0, w], are not read.  Returns cudaGetLastError().
+// y [>= row0 + n, 2] fp32 (8-byte aligned), cols [n, w] int32 (every
+// entry a row of y), vals [n, w] fp32, row_len [n] int32 or null (every
+// row w long) -> force [n, 2], kl_rows [n]; row i is y's point row0 + i.
+// Entries at or past row_len[i], clamped into [0, w], are not read.
+// Returns cudaGetLastError().
 extern "C" int attractive_ell(const float* y, const int32_t* cols, const float* vals,
                               const int32_t* row_len, float* force, float* kl_rows,
-                              int n, int w, void* stream) {
+                              int n, int w, int row0, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int blocks = (n + WARPS - 1) / WARPS;
   attractive_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float2*>(y), cols, vals, row_len,
-      reinterpret_cast<float2*>(force), kl_rows, n, w);
+      reinterpret_cast<float2*>(force), kl_rows, n, w, row0);
   return (int)cudaGetLastError();
 }

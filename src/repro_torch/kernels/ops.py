@@ -38,11 +38,11 @@ _SIGNATURES = {
     "pairwise": ("pairwise_sq_dists", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "bsp": ("bsp_search", [_P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P]),
     "morton": ("morton_encode", [_P, _P, _P, _P, _I, _I, _P]),
-    "attractive": ("attractive_ell", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "attractive": ("attractive_ell", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "spread": ("fft_spread", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P]),
     "gather": ("fft_gather", [_P, _P, _P, _P, _P, _I, _I, _P]),
-    "traverse": ("bh_traverse", [_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I,
-                                    _P]),
+    "traverse": ("bh_traverse", [_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _P]),
 }
 _ENTRIES: dict = {}   # source -> its C entry, argtypes and restype set
 
@@ -225,10 +225,16 @@ def morton_encode_cuda(y, cent, r_span, depth: int = morton.DEFAULT_DEPTH):
 # ---------------------------------------------------------------------------
 
 def bh_traverse(y_sorted: torch.Tensor, tree: LinearQuadtree, summary: TreeSummary,
-                theta: float) -> repulsive.RepulsionResult:
+                theta: float, pos: torch.Tensor | None = None) -> repulsive.RepulsionResult:
     """§3.5 Barnes-Hut walk of points in Morton order: y_sorted [N, 2] fp32,
     the tree's [cap] int64 arrays and the summaries' [cap] fp32 arrays ->
-    (force [N, 2], z_per_point [N], steps [N] int64)."""
+    (force [M, 2], z_per_point [M], steps [M] int64).
+
+    ``pos`` [M] int32 walks only the points at those sorted positions (row
+    i is the point at ``pos[i]``); None walks all N in order (M = N).  Its
+    range is checked on the CPU only (a host read); on the card the
+    kernel traps on a position outside [0, N).  Sorted ascending, a warp's
+    lanes walk Morton neighbours, as on the main path."""
     _check("y_sorted", y_sorted, torch.float32, 2)
     for arg in ("start", "end", "skip"):
         _check(arg, getattr(tree, arg), torch.int64, 1)
@@ -245,21 +251,32 @@ def bh_traverse(y_sorted: torch.Tensor, tree: LinearQuadtree, summary: TreeSumma
                          f"{tuple(tree.start.shape)}, sum_y {tuple(summary.sum_y.shape)}")
     if not 1 <= cap < 2**31:
         raise ValueError(f"tree capacity {cap} must be in [1, 2^31)")
-    dev = _device(y_sorted=y_sorted, start=tree.start, end=tree.end, skip=tree.skip,
-                  n_nodes=tree.n_nodes, count=summary.count, sum_y=summary.sum_y,
-                  side=summary.side)
+    tensors = dict(y_sorted=y_sorted, start=tree.start, end=tree.end, skip=tree.skip,
+                   n_nodes=tree.n_nodes, count=summary.count, sum_y=summary.sum_y,
+                   side=summary.side)
+    if pos is not None:
+        _check("pos", pos, torch.int32, 1)
+        tensors["pos"] = pos
+    dev = _device(**tensors)
     if dev.type == "cpu":
-        return repulsive.bh_repulsion_sorted(y_sorted, tree, summary, theta)
-    return bh_traverse_cuda(y_sorted, tree, summary, theta)
+        if pos is not None and pos.numel():
+            lo, hi = (int(v) for v in torch.aminmax(pos))
+            if lo < 0 or hi >= y_sorted.shape[0]:
+                raise ValueError(f"pos: values must lie in [0, {y_sorted.shape[0]}), got "
+                                 f"[{lo}, {hi}]")
+        return repulsive.bh_repulsion_sorted(y_sorted, tree, summary, theta, pos)
+    return bh_traverse_cuda(y_sorted, tree, summary, theta, pos=pos)
 
 
 def bh_traverse_cuda(y_sorted, tree, summary, theta: float,
-                     records: torch.Tensor | None = None) -> repulsive.RepulsionResult:
+                     records: torch.Tensor | None = None,
+                     pos: torch.Tensor | None = None) -> repulsive.RepulsionResult:
     """One launch of ``csrc/traverse.cu``: its first kernel packs the valid
     nodes into ``records`` ([cap, 8] int32, ``repulsive.pack_nodes``'s
     layout; allocated here if None, and given only to read the packed
-    records back), its second walks them."""
-    n, dev = y_sorted.shape[0], y_sorted.device
+    records back), its second walks them (the points at ``pos``, or all)."""
+    n_points, dev = y_sorted.shape[0], y_sorted.device
+    n = n_points if pos is None else pos.shape[0]
     cap = tree.capacity
     if records is None:
         records = torch.empty((cap, repulsive.RECORD_WORDS), dtype=torch.int32, device=dev)
@@ -274,8 +291,9 @@ def bh_traverse_cuda(y_sorted, tree, summary, theta: float,
         _launch("bh_traverse", "traverse", dev, y_sorted.data_ptr(), tree.start.data_ptr(),
                 tree.end.data_ptr(), tree.skip.data_ptr(), tree.n_nodes.data_ptr(),
                 summary.count.data_ptr(), summary.sum_y.data_ptr(), summary.side.data_ptr(),
-                repulsive.theta_squared(theta), records.data_ptr(), force.data_ptr(),
-                z.data_ptr(), steps.data_ptr(), n, cap)
+                repulsive.theta_squared(theta), records.data_ptr(),
+                None if pos is None else pos.data_ptr(), force.data_ptr(), z.data_ptr(),
+                steps.data_ptr(), n, n_points, cap)
     return repulsive.RepulsionResult(force=force, z_per_point=z, steps=steps)
 
 
@@ -284,10 +302,13 @@ def bh_traverse_cuda(y_sorted, tree, summary, theta: float,
 # ---------------------------------------------------------------------------
 
 def attractive_ell(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-                   row_len: torch.Tensor | None = None):
-    """Algorithm 2: y [N, 2], cols [N, W] int32, vals [N, W] -> (F [N, 2], KL).
+                   row_len: torch.Tensor | None = None, row0: int = 0):
+    """Algorithm 2: y [N, 2], cols [M, W] int32, vals [M, W] -> (F [M, 2], KL).
 
-    ``row_len`` [N] int32 in [0, W] is the number of real entries of each
+    Row i of ``cols`` is the point ``y[row0 + i]`` (a shard's rows against
+    the global y; row0 = 0 and M = N for the whole graph).
+
+    ``row_len`` [M] int32 in [0, W] is the number of real entries of each
     row (``NeighborGraph.p_len``); entries at or past it are ignored by
     kernel and plain version alike.  ``None``: every row is W long.  Its
     range is checked on the CPU only: on the card the check would read the
@@ -298,10 +319,10 @@ def attractive_ell(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     _check("cols", cols, torch.int32, 2)
     _check("vals", vals, torch.float32, 2)
     n, w = cols.shape
-    if y.shape != (n, 2) or vals.shape != (n, w):
-        raise ValueError(f"expected y [N, 2], cols and vals [N, W]; got y "
-                         f"{tuple(y.shape)}, cols {tuple(cols.shape)}, vals "
-                         f"{tuple(vals.shape)}")
+    if y.shape[1] != 2 or vals.shape != (n, w) or not 0 <= row0 <= y.shape[0] - n:
+        raise ValueError(f"expected y [N, 2], cols and vals [M, W] with 0 <= row0 <= N - M; "
+                         f"got y {tuple(y.shape)}, cols {tuple(cols.shape)}, vals "
+                         f"{tuple(vals.shape)}, row0 {row0}")
     tensors = dict(y=y, cols=cols, vals=vals)
     if row_len is not None:
         _check("row_len", row_len, torch.int32, 1)
@@ -314,11 +335,11 @@ def attractive_ell(y: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
         if lo < 0 or hi > w:
             raise ValueError(f"row_len: values must lie in [0, {w}], got [{lo}, {hi}]")
     if dev.type == "cpu":
-        return attractive.attractive_forces_ell(y, cols, vals, row_len)
-    return attractive_ell_cuda(y, cols, vals, row_len)
+        return attractive.attractive_forces_ell(y, cols, vals, row_len, row0)
+    return attractive_ell_cuda(y, cols, vals, row_len, row0)
 
 
-def attractive_ell_cuda(y, cols, vals, row_len=None):
+def attractive_ell_cuda(y, cols, vals, row_len=None, row0: int = 0):
     n, w = cols.shape
     if y.data_ptr() % 8:
         raise ValueError("y must be 8-byte aligned (the kernel reads a point as a float2)")
@@ -327,7 +348,7 @@ def attractive_ell_cuda(y, cols, vals, row_len=None):
     if n:
         _launch("attractive_ell", "attractive", y.device, y.data_ptr(), cols.data_ptr(),
                 vals.data_ptr(), None if row_len is None else row_len.data_ptr(),
-                force.data_ptr(), kl_rows.data_ptr(), n, w)
+                force.data_ptr(), kl_rows.data_ptr(), n, w, int(row0))
     # per-row partials summed here, as attractive_kernel.py sums them:
     # deterministic, no atomics
     return force, torch.sum(kl_rows)

@@ -343,8 +343,9 @@ def test_traverse_launch_passes_the_tree_on_the_device(monkeypatch):
     assert args == [ys.data_ptr(), tree.start.data_ptr(), tree.end.data_ptr(),
                     tree.skip.data_ptr(), tree.n_nodes.data_ptr(), summ.count.data_ptr(),
                     summ.sum_y.data_ptr(), summ.side.data_ptr(),
-                    float(torch.tensor(0.3) ** 2), records.data_ptr(), res.force.data_ptr(),
-                    res.z_per_point.data_ptr(), res.steps.data_ptr(), 40, tree.capacity]
+                    float(torch.tensor(0.3) ** 2), records.data_ptr(), None,
+                    res.force.data_ptr(), res.z_per_point.data_ptr(), res.steps.data_ptr(), 40,
+                    40, tree.capacity]
     # without a buffer the wrapper allocates one: [cap, 8] int32, one
     # 32-byte record a node
     ops.bh_traverse_cuda(ys, tree, summ, 0.3)

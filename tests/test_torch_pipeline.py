@@ -115,7 +115,8 @@ def test_neighbor_registry():
     with pytest.raises(ValueError, match="k=50 must be < n=50"):
         nb.neighbors(x, 50)
     with pytest.raises(ValueError, match="unknown neighbor method"):
-        make_neighbor_backend("sharded")      # comes with the multi-device port
+        make_neighbor_backend("no_such_backend")
+    assert "sharded" in available_neighbor_backends()     # the multi-device port's
 
 
 # -------------------------------------------------------------- symmetrize --
@@ -210,9 +211,9 @@ def test_backends_pass_p_len(monkeypatch):
     seen = []
     real = attractive.attractive_forces_ell
 
-    def spy(y, cols, vals, row_len=None):
+    def spy(y, cols, vals, row_len=None, row0=0):
         seen.append(row_len)
-        return real(y, cols, vals, row_len)
+        return real(y, cols, vals, row_len, row0)
 
     monkeypatch.setattr(attractive, "attractive_forces_ell", spy)
     bh = BarnesHutBackend().gradient(y, g, 12.0)

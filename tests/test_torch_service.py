@@ -280,6 +280,10 @@ def test_tsne_run_on_digits(tmp_path, capsys):
     assert "KL=" in capsys.readouterr().out
 
 
-def test_tsne_run_refuses_several_devices():
-    with pytest.raises(SystemExit, match="item 5"):
-        tsne_run.main(["--devices", "2", "--device", "cpu"])
+def test_tsne_run_refuses_several_devices(monkeypatch):
+    # --devices S on cuda takes S cards: with one visible it raises, and
+    # never runs the S shards on one card instead
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 cards, but 1"):
+        tsne_run.main(["--devices", "2", "--n", "300"])
