@@ -3,6 +3,7 @@
     python3 chip_smoke.py                  # the full run: one card, no arguments
     python3 chip_smoke.py --n-iter 300 --exaggeration-iters 150   # shorter descents
     python3 chip_smoke.py --sharded-only   # phases 1, 2, 5 and 13 (for several cards)
+    python3 chip_smoke.py --mouse-only     # phases 1, 2, 14 and 15 (the mouse embedding only)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -162,13 +163,47 @@ result line):
                a mesh of every card.  Last, preprocess with
                TsneConfig(neighbor_method="sharded") on MNIST over the
                visible cards: the graph's invariants and seconds.
+14. mouse    -- the paper's headline experiment through the port's example,
+               python -m repro_torch.examples.mouse_pipeline's main with
+               --n 1291337 --shards 4 --method barnes_hut --iters 300
+               --ckpt_every 100 (into a temporary directory): all of
+               mouse_1p3m (N is not cut; 300 steps, the reference
+               docstring's million-point example, are the one cut), KNN
+               by the sharded backend on Mesh((cuda:0,) * 4) (the forced
+               mesh size), bsp and symmetrization in 100 000-row chunks.
+               Launch counts set to 0 just before and read just after:
+               bsp > 0, Morton, attractive and the walk 300 each.  Prints
+               the knn / bsp / symmetrize seconds, the ELL width W, nnz,
+               the graph's GiB, ms a step, the KL every 50 steps and the
+               peak of torch.cuda.max_memory_allocated; the KL must be
+               finite and lower at step 300 than at 250 (the last
+               exaggerated step's read).  A second run from a copy of the
+               step-200 checkpoint (the same graph) must end with the
+               straight run's embedding bit for bit.  Then bsp (on a
+               [100 000, 90] slice, the path's launch shape), Morton,
+               attractive and the walk at the final embedding and graph:
+               wrapper, device and plain ms beside the bound, the walk bit
+               for bit against its plain twin.
+15. naive    -- the paper's per-step rows (Tables 5/6) on the card, at the
+               BH fit's MNIST embedding (phase 5) and at the mouse fit's
+               final one: core.naive's level-by-level build and summaries
+               against Morton + sort + build_quadtree + summarize, and
+               naive_attractive (a loop over the W slots) against the
+               attractive_ell kernel; each speedup printed.  Naive on the
+               card against naive on the CPU (ids and counts equal,
+               centres of mass and forces allclose(rtol=1e-5,
+               atol=1e-6)), and the two attractive passes against each
+               other at that tolerance.
 
 Every kernel must be launched by at least one of the two fits.  Each
-driven path (the two fits, the service and the sharded fit) has its
-launch counts set to 0 just before it and read just after.
+driven path (the two fits, the service, the sharded fit and the mouse
+pipeline) has its launch counts set to 0 just before it and read just
+after.
 
 The line before the last is the kernels JSON object (each row's
-``sharded_launches`` from the sharded fit); the last line is
+``sharded_launches`` from the sharded fit, ``mouse_launches`` from the
+mouse pipeline and, for its four kernels, ``mouse_*`` times at
+N = 1 291 337); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -176,8 +211,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2102,6 +2139,226 @@ def phase_sharded(est, x: torch.Tensor, x_np: np.ndarray, mouse, args) -> tuple:
     return launches, extra
 
 
+# ---------------------------------------------------------------------------
+# The paper's million-point pipeline, and the naive baseline
+# ---------------------------------------------------------------------------
+
+MOUSE_N = 1_291_337         # all of mouse_1p3m: N is never cut
+MOUSE_ITERS = 300           # the reference docstring's million-point example (the one cut)
+MOUSE_SHARDS = 4            # --shards 4: Mesh((cuda:0,) * 4) on one card
+MOUSE_CKPT_EVERY = 100
+MOUSE_RESUME = 200          # the resumed run starts from this step's checkpoint
+MOUSE_STEP_KERNELS = ("morton_encode", "attractive_ell", "bh_traverse")
+MOUSE_KERNELS = ("bsp_search",) + MOUSE_STEP_KERNELS
+BSP_CHUNK = 100_000         # the example's --chunk-size at N >= 200 000
+
+
+def mouse_kernel_rows(run, perplexity: float) -> dict:
+    """Each per-step kernel at the mouse fit's final embedding and graph
+    (N = 1 291 337), and bsp_search on one of the path's [100 000, 90]
+    slices: wrapper ms, device ms, the plain twin's ms and the bound,
+    counted as phase 3 counts them.  The walk is held bit for bit against
+    its plain twin at this N; the others to phase 3's tolerances.  The
+    plain attractive pass runs in 100 000-row blocks (``row0``): its
+    [rows, W, 2] gathers do not fit the card in one call at the graph's W.  bsp's
+    input is sorted synthetic distances: its 65 passes do not depend on the
+    values, and the pipeline does not return its d2."""
+    from repro_torch.core import attractive, bsp, morton
+    from repro_torch.core.repulsive import bh_repulsion_sorted
+    from repro_torch.kernels import ops
+    y = torch.as_tensor(run.y).cuda()
+    g = run.graph
+    n, k = y.shape[0], int(3 * perplexity)
+    out = {}
+
+    def put(name, ms, plain_ms, flops, nbytes, device_ms, sfu=0.0, **extra):
+        b_ms, b_by = bound(flops, nbytes, sfu=sfu)
+        out[name] = dict(mouse_ms=ms, mouse_device_ms=device_ms, mouse_plain_ms=plain_ms,
+                         mouse_bound_ms=b_ms, mouse_bound_by=b_by, **extra)
+        log(f"mouse kernel {name}: {ms:.4f} ms (device {device_ms} ms)  plain "
+            f"{plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})"
+            + "".join(f"  {key} {v}" for key, v in extra.items()))
+
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    d2 = torch.sort(torch.rand((BSP_CHUNK, k), generator=gen) * 50.0, dim=1).values.cuda()
+    p_k, b_k = ops.bsp_search(d2, perplexity)
+    p_p, b_p = bsp.binary_search_perplexity_plain(d2, perplexity)
+    check_bsp(f"[{BSP_CHUNK}, {k}]", p_k, b_k, p_p, b_p)
+    nk = d2.numel()
+    put("bsp_search", cuda_ms(lambda: ops.bsp_search(d2, perplexity)),
+        cuda_ms(lambda: bsp.binary_search_perplexity_plain(d2, perplexity), reps=3, inner=1),
+        65.0 * 6.0 * nk, 4.0 * (2 * nk + BSP_CHUNK),
+        kernel_ms(lambda: ops.bsp_search(d2, perplexity), "bsp"), sfu=65.0 * nk,
+        shape=[BSP_CHUNK, k])
+
+    cent, r_span = morton.span_radius(y)
+    if not torch.equal(ops.morton_encode(y, cent, r_span), morton.morton_encode(y, cent, r_span)):
+        fail("morton_encode is not bit-identical to its plain version at the mouse embedding")
+    put("morton_encode", cuda_ms(lambda: ops.morton_encode(y, cent, r_span), inner=20),
+        cuda_ms(lambda: morton.morton_encode(y, cent, r_span), inner=20),
+        6.0 * n, 16.0 * n + 12.0, kernel_ms(lambda: ops.morton_encode(y, cent, r_span), "morton"))
+
+    cols, vals, p_len = g.p_cols, g.p_vals, g.p_len
+    nnz = int(p_len.sum())
+
+    def plain_attractive():
+        # the plain twin's [rows, W, 2] gathers do not fit the card at the
+        # mouse graph's width in one call: row blocks against the global y
+        parts = [attractive.attractive_forces_ell(y, cols[r:r + BSP_CHUNK],
+                                                  vals[r:r + BSP_CHUNK],
+                                                  p_len[r:r + BSP_CHUNK], row0=r)
+                 for r in range(0, n, BSP_CHUNK)]
+        return torch.cat([f for f, _ in parts]), sum(kl for _, kl in parts)
+
+    f_k, kl_k = ops.attractive_ell(y, cols, vals, p_len)
+    (f_p, kl_p), plain_s = synced_seconds(plain_attractive)
+    if not (torch.allclose(f_k, f_p, rtol=1e-4, atol=1e-5 * float(f_p.abs().max()))
+            and abs(float(kl_k) - float(kl_p)) <= 1e-5 * abs(float(kl_p))):
+        fail("attractive_ell disagrees with its plain version at the mouse graph")
+    put("attractive_ell", cuda_ms(lambda: ops.attractive_ell(y, cols, vals, p_len), inner=10),
+        plain_s * 1e3, 13.0 * nnz, 8.0 * nnz + 24.0 * n,
+        kernel_ms(lambda: ops.attractive_ell(y, cols, vals, p_len), "attractive"),
+        max_abs_err=float((f_k - f_p).abs().max()), nnz=nnz)
+
+    y_s, tree, summ, _ = walk_inputs(y)
+    got = ops.bh_traverse(y_s, tree, summ, 0.5)
+    (ref, plain_s) = synced_seconds(lambda: bh_repulsion_sorted(y_s, tree, summ, 0.5))
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        fail("bh_traverse is not bit-identical to its plain walk at the mouse embedding")
+    visits, n_nodes = int(got.steps.sum()), int(tree.n_nodes)
+    pack_ms = kernel_ms(lambda: ops.bh_traverse(y_s, tree, summ, 0.5), "traverse_pack")
+    walk_ms = kernel_ms(lambda: ops.bh_traverse(y_s, tree, summ, 0.5), "traverse_walk")
+    put("bh_traverse", cuda_ms(lambda: ops.bh_traverse(y_s, tree, summ, 0.5), inner=5),
+        plain_s * 1e3, 15.0 * visits, 40.0 * n_nodes + 8.0 + 28.0 * n,
+        None if pack_ms is None or walk_ms is None else pack_ms + walk_ms,
+        n_nodes=n_nodes, visits=visits, max_steps=int(got.steps.max()))
+    return out
+
+
+def phase_mouse(perplexity: float = 30.0) -> tuple:
+    """Phase 14: repro_torch.examples.mouse_pipeline's main on all of
+    mouse_1p3m, its launch counts set to 0 just before and read just after,
+    then a resume from its step-200 checkpoint; see the module docstring.
+    Returns (summary, launches, per-kernel extras, the run)."""
+    from repro_torch.core.tsne import TsneConfig
+    from repro_torch.device import MESH_DEVICES_ENV
+    from repro_torch.examples import mouse_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.neighbors import sharded
+    forced_before = os.environ.get(MESH_DEVICES_ENV)
+    with tempfile.TemporaryDirectory(prefix="mouse_") as tmp:
+        a, b = Path(tmp) / "a", Path(tmp) / "b"
+        argv = ["--n", str(MOUSE_N), "--shards", str(MOUSE_SHARDS), "--method",
+                "barnes_hut", "--iters", str(MOUSE_ITERS), "--perplexity", str(perplexity),
+                "--ckpt_every", str(MOUSE_CKPT_EVERY), "--kl_every", "50"]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        try:
+            run, secs = synced_seconds(lambda: mouse_pipeline.main(
+                argv + ["--ckpt_dir", str(a), "--out", str(a / "y.npy")]))
+            launches = dict(ops.LAUNCHES)
+            mesh = sharded.visible_devices(torch.device("cuda"))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            shutil.copytree(a / f"step_{MOUSE_RESUME:010d}", b / f"step_{MOUSE_RESUME:010d}")
+            resumed, resume_secs = synced_seconds(lambda: mouse_pipeline.main(
+                argv + ["--ckpt_dir", str(b), "--out", str(b / "y.npy")], graph=run.graph))
+        finally:
+            if forced_before is None:
+                os.environ.pop(MESH_DEVICES_ENV, None)
+    g = run.graph
+    cards = torch.cuda.device_count()
+    want_mesh = tuple(torch.device("cuda", i % cards) for i in range(MOUSE_SHARDS))
+    w, nnz = int(g.p_cols.shape[1]), int(g.p_len.sum())
+    gib = sum(t.numel() * t.element_size() for t in (g.p_cols, g.p_vals, g.p_len)) / 2**30
+    t = run.timings
+    summary = dict(
+        n=MOUSE_N, steps=MOUSE_ITERS, seconds=secs, mesh=[str(d) for d in mesh],
+        knn=t["knn"], bsp=t["bsp"], symmetrize=t["symmetrize"],
+        gradient_descent=t["gradient_descent"], ms_per_step=run.ms_per_step,
+        neighbor_method=t["neighbor_method"], chunk_size=t["chunk_size"],
+        W=w, nnz=nnz, row_len_mean=nnz / MOUSE_N, row_len_max=int(g.p_len.max()),
+        graph_gib=gib, peak_gib=peak, kl_history=run.kl_history,
+        resume_from=resumed.start, resume_seconds=resume_secs,
+        resume_ms_per_step=resumed.ms_per_step)
+    log("mouse pipeline (phase 14): " + json.dumps(summary))
+    log(f"mouse pipeline launches: {json.dumps(launches)}")
+    if t["neighbor_method"] != "sharded" or mesh != want_mesh:
+        fail(f"the mouse pipeline's KNN did not run on Mesh({want_mesh}): "
+             f"{t['neighbor_method']} over {mesh}")
+    if run.y.shape != (MOUSE_N, 2) or not np.isfinite(run.y).all():
+        fail("the mouse embedding is not finite or of the wrong shape")
+    missing = [kname for kname in MOUSE_KERNELS if launches[kname] <= 0]
+    if missing:
+        fail(f"the mouse pipeline never launched {missing}")
+    check_launches("mouse", launches, MOUSE_KERNELS, MOUSE_STEP_KERNELS, MOUSE_ITERS)
+    kls = dict(run.kl_history)
+    if not np.isfinite(list(kls.values())).all():
+        fail(f"the mouse fit's KL is not finite: {run.kl_history}")
+    exag = TsneConfig().exaggeration_iters      # the example's schedule
+    if not kls[MOUSE_ITERS] < kls[exag]:
+        fail(f"the mouse fit's KL did not fall after the exaggerated steps: {run.kl_history}")
+    if resumed.start != MOUSE_RESUME:
+        fail(f"the resumed mouse run started at {resumed.start}, not {MOUSE_RESUME}")
+    if not np.array_equal(resumed.y.view(np.uint32), run.y.view(np.uint32)):
+        diff = np.abs(resumed.y - run.y)
+        fail(f"the mouse run resumed from step {MOUSE_RESUME} differs from the straight run "
+             f"at {int((diff > 0).any(1).sum())} points (max |dy| {float(diff.max()):.3e})")
+    log(f"mouse resume from step {MOUSE_RESUME}: the embedding equals the straight run's "
+        f"bit for bit (KL {resumed.kl:.6f} against {run.kl:.6f})")
+    extra = mouse_kernel_rows(run, perplexity)
+    for kname in extra:
+        extra[kname]["mouse_launches"] = launches[kname]
+    return summary, launches, extra, run
+
+
+def phase_naive(label: str, y: torch.Tensor, graph) -> dict:
+    """Phase 15 at one embedding: the paper's per-step rows (Tables 5/6),
+    naive against optimised on the card.  The naive build and summaries
+    (core.naive, 16 levels) against Morton + sort + build_quadtree +
+    summarize (walk_inputs, as bh_gradient builds them); naive_attractive
+    (a loop over the W slots) against the attractive_ell kernel.  Naive on
+    the card against naive on the CPU: ids and counts equal, centres of
+    mass and forces allclose(rtol=1e-5, atol=1e-6); the two attractive
+    passes against each other at that tolerance."""
+    from repro_torch.core.naive import naive_attractive, naive_build_and_summarize
+    from repro_torch.kernels import ops
+    tol = dict(rtol=1e-5, atol=1e-6)
+    cols, vals, p_len = graph.p_cols, graph.p_vals, graph.p_len
+    ids, coms, counts = naive_build_and_summarize(y)
+    ids_c, coms_c, counts_c = naive_build_and_summarize(y.cpu())
+    if not torch.equal(ids.cpu(), ids_c) or \
+            not all(torch.equal(a.cpu(), b) for a, b in zip(counts, counts_c)):
+        fail(f"naive build ({label}): the card's ids or counts differ from the CPU's")
+    com_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(coms, coms_c))
+    if not all(torch.allclose(a.cpu(), b, **tol) for a, b in zip(coms, coms_c)):
+        fail(f"naive build ({label}): centres of mass differ from the CPU's "
+             f"(max |d| {com_err:.3e})")
+    f_n = naive_attractive(y, cols, vals)
+    # the CPU copies column-major: the same values, and each slot's column
+    # contiguous, so the CPU's loop over W slots (1 399 at the mouse graph)
+    # reads no strided column
+    f_c = naive_attractive(y.cpu(), cols.t().contiguous().cpu().t(),
+                           vals.t().contiguous().cpu().t())
+    f_k, _ = ops.attractive_ell(y, cols, vals, p_len)
+    if not torch.allclose(f_n.cpu(), f_c, **tol):
+        fail(f"naive_attractive ({label}): the card disagrees with the CPU")
+    if not torch.allclose(f_n, f_k, **tol):
+        fail(f"naive_attractive ({label}) disagrees with the attractive_ell kernel")
+    out = dict(
+        n=int(y.shape[0]), W=int(cols.shape[1]), com_max_abs_err=com_err,
+        force_max_abs_err_cpu=float((f_n.cpu() - f_c).abs().max()),
+        force_max_abs_err_kernel=float((f_n - f_k).abs().max()),
+        force_max=float(f_k.abs().max()),
+        naive_build_ms=cuda_ms(lambda: naive_build_and_summarize(y), reps=3, inner=1),
+        build_ms=cuda_ms(lambda: walk_inputs(y), reps=5, inner=2),
+        naive_attractive_ms=cuda_ms(lambda: naive_attractive(y, cols, vals), reps=3, inner=1),
+        attractive_ms=cuda_ms(lambda: ops.attractive_ell(y, cols, vals, p_len), inner=10))
+    out["build_speedup"] = out["naive_build_ms"] / out["build_ms"]
+    out["attractive_speedup"] = out["naive_attractive_ms"] / out["attractive_ms"]
+    log(f"naive vs optimised ({label}): " + json.dumps(out))
+    return out
+
+
 BH_KERNELS = ("pairwise_sq_dists", "bsp_search", "morton_encode", "attractive_ell",
               "bh_traverse")
 FFT_KERNELS = ("pairwise_sq_dists", "bsp_search", "attractive_ell", "fft_spread",
@@ -2118,6 +2375,9 @@ def main() -> None:
     ap.add_argument("--sharded-only", action="store_true",
                     help="phases 1, 2, 5 (phase 13's input, untraced) and 13 alone, for a "
                          "machine with several cards; no kernels line")
+    ap.add_argument("--mouse-only", action="store_true",
+                    help="phases 1, 2, 14 and 15 (at the mouse embedding alone), for "
+                         "iterating on the million-point pipeline; no kernels line")
     args = ap.parse_args()
 
     phase_device()
@@ -2125,6 +2385,14 @@ def main() -> None:
     from repro_torch.kernels import ops
     phase_build()
 
+    if args.mouse_only:
+        _, _, _, mouse_run = phase_mouse()
+        phase_naive("mouse_1p3m, the fit's final embedding",
+                    torch.as_tensor(mouse_run.y).cuda(), mouse_run.graph)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     x_np, labels = make_dataset("mnist")
     x = torch.as_tensor(x_np).cuda()
     perplexity = 30.0
@@ -2155,6 +2423,15 @@ def main() -> None:
     phase_transform(est_rp, x_np, labels)
     service = phase_service(est_rp, est_ex, x_np)
     sharded_launches, sharded_extra = phase_sharded(bh_est, x, x_np, mouse, args)
+    del mouse
+    _, mouse_launches, mouse_extra, mouse_run = phase_mouse(perplexity)
+    naive = dict(mnist=phase_naive("MNIST, the BH fit's embedding",
+                                   torch.as_tensor(bh_est.embedding_).cuda(),
+                                   bh_est.neighbor_graph_),
+                 mouse=phase_naive("mouse_1p3m, the fit's final embedding",
+                                   torch.as_tensor(mouse_run.y).cuda(), mouse_run.graph))
+    log("naive vs optimised, speedups (build, attractive): " + json.dumps(
+        {k: [v["build_speedup"], v["attractive_speedup"]] for k, v in naive.items()}))
 
     unlaunched = [k for k in ops.LAUNCHES if bh_launches[k] + fft_launches[k] == 0]
     if unlaunched:
@@ -2169,6 +2446,8 @@ def main() -> None:
             r["fitted_device_ms"] = fft_breakdown[f"{r['name'][4:]}_device_ms"]
         r["sharded_launches"] = sharded_launches[r["name"]]
         r.update(sharded_extra.get(r["name"], {}))
+        r["mouse_launches"] = mouse_launches[r["name"]]
+        r.update(mouse_extra.get(r["name"], {}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

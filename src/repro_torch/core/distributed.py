@@ -48,7 +48,9 @@ from repro_torch.core import morton, quadtree
 from repro_torch.core.knn import key_low_words, write_keys
 from repro_torch.core.summarize import summarize
 from repro_torch.core.tsne import GradResult, TsneState, combine_forces, gd_move
-from repro_torch.device import resolve_device
+from repro_torch.device import (
+    MESH_DEVICES_ENV, forced_mesh_size, mesh_devices, resolve_device,
+)
 from repro_torch.kernels import ops
 from repro_torch.neighbors._candidates import candidate_sq_dists, merge_topk
 from repro_torch.neighbors.rp_forest import (
@@ -87,17 +89,21 @@ class Mesh:
 def make_mesh(n: int, device: str | torch.device = "cuda") -> Mesh:
     """A mesh of the first ``n`` cards (raises if fewer are visible, as
     ``jax.make_mesh`` does), or of ``n`` CPU shards for ``device="cpu"``
-    (the counterpart of forced host devices)."""
+    (the counterpart of forced host devices).  With
+    ``REPRO_TORCH_MESH_DEVICES=S`` set, the first ``n`` of the S devices
+    that :func:`repro_torch.device.mesh_devices` repeats, on either device
+    type: ``make_mesh(4)`` is ``Mesh((cuda:0,) * 4)`` on one card."""
     dev = resolve_device(device)
     if n < 1:
         raise ValueError(f"a mesh needs n >= 1 devices, got {n}")
-    if dev.type == "cpu":
+    if dev.type == "cpu" and forced_mesh_size() is None:
         return Mesh((dev,) * n)
-    visible = torch.cuda.device_count()
-    if n > visible:
-        raise ValueError(f"a mesh of {n} devices needs {n} cards, but {visible} "
-                         "are visible")
-    return Mesh(tuple(torch.device("cuda", i) for i in range(n)))
+    visible = mesh_devices(dev)
+    if n > len(visible):
+        unit = "cards" if dev.type == "cuda" else "CPU devices"
+        raise ValueError(f"a mesh of {n} devices needs {n} {unit}, but {len(visible)} "
+                         f"are visible (set {MESH_DEVICES_ENV}={n} to repeat them)")
+    return Mesh(visible[:n])
 
 
 def shard_rows(mesh: Mesh, x: torch.Tensor) -> list[torch.Tensor]:

@@ -70,3 +70,17 @@ def morton_encode(y: torch.Tensor, cent: torch.Tensor, r_span: torch.Tensor,
         # keep codes left-aligned at bit 2*depth so prefix logic is uniform
         code = code & ((1 << (2 * depth)) - 1)
     return code
+
+
+def morton_decode_cell(code: torch.Tensor, level: int, depth: int = DEFAULT_DEPTH):
+    """Integer (x, y) cell coordinates of ``code``'s prefix at ``level``."""
+    pfx = code >> (2 * (depth - level))
+    return _compact_bits(pfx), _compact_bits(pfx >> 1)
+
+
+def _compact_bits(v: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`expand_bits`: bit 2i of int64 ``v`` moves to bit i."""
+    v = v & 0x55555555
+    for shift, mask in ((1, 0x33333333), (2, 0x0F0F0F0F), (4, 0x00FF00FF), (8, 0x0000FFFF)):
+        v = (v | (v >> shift)) & mask
+    return v

@@ -559,5 +559,24 @@ def kernel_registry() -> dict:
     }
 
 
+IMPLS = ("plain", "cuda")
+
+
+def get_kernel(name: str, impl: str = "cuda"):
+    """Dispatch helper, as the reference's: the ``impl`` entry point
+    (``plain``, the PyTorch twin, or ``cuda``, the kernel's launch) of
+    registered kernel ``name``."""
+    table = kernel_registry()
+    try:
+        entry = table[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown kernel {name!r} (registered: {', '.join(sorted(table))})"
+        ) from None
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be 'plain' or 'cuda', got {impl!r}")
+    return entry[impl]
+
+
 def available_kernels() -> tuple[str, ...]:
     return tuple(sorted(kernel_registry()))

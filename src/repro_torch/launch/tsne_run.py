@@ -5,10 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.tsne_run --method fft --n 4096
     PYTHONPATH=src python -m repro_torch.launch.tsne_run --device cpu --n 500 --iters 120
     PYTHONPATH=src python -m repro_torch.launch.tsne_run --device cpu --devices 4 --n 512 --iters 60
+    REPRO_TORCH_MESH_DEVICES=4 \
+      PYTHONPATH=src python -m repro_torch.launch.tsne_run --dataset mnist --n 4096 --devices 4
 
 Runs on cuda unless ``--device cpu`` is given.  ``--devices S`` (S > 1)
 shards the points over a mesh of S devices (``core/distributed.py``): the
-first S cards, or S CPU shards with ``--device cpu``.  That path is the
+first S cards, or S CPU shards with ``--device cpu``.  As the reference
+needs ``XLA_FLAGS=--xla_force_host_platform_device_count=S`` for more
+shards than devices, the port needs ``REPRO_TORCH_MESH_DEVICES=S``: then
+the visible devices are repeated, S shards on one card.  That path is the
 reference's: the exact ring KNN, the perplexity search, the symmetrized
 ELL graph, then Barnes-Hut descent steps of the sharded gradient
 (:func:`run_distributed`), N cut to a multiple of S.

@@ -12,7 +12,9 @@ the standard ``neighbors(x, k)`` contract:
 
 ``shards=None`` uses every visible device (:func:`visible_devices`: all
 cards for a CUDA input, one CPU for a CPU input, where the ring
-degenerates to one local forest pass, still row-blocked).  Inputs of any
+degenerates to one local forest pass, still row-blocked;
+``REPRO_TORCH_MESH_DEVICES=S`` makes it S, as forced host devices do for
+the reference).  Inputs of any
 N are zero-padded to a shard multiple; pad rows are masked out of every
 merge and cut from the result.
 """
@@ -23,18 +25,16 @@ from typing import ClassVar
 
 import torch
 
+from repro_torch.device import MESH_DEVICES_ENV, mesh_devices
 from repro_torch.neighbors.base import register_neighbor_backend, validate_k
 
 MODES = ("approx", "exact")
 
 
 def visible_devices(device: torch.device) -> tuple[torch.device, ...]:
-    """The devices a mesh for data on ``device`` may use: every card for a
-    CUDA device, the one CPU for the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        return tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
-    return (torch.device("cpu"),)
+    """The devices a mesh for data on ``device`` may use
+    (:func:`repro_torch.device.mesh_devices`, which honours the forced mesh size)."""
+    return mesh_devices(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +75,8 @@ class ShardedNeighbors:
         s = avail if self.shards in (None, 0) else int(self.shards)
         if s > avail:
             raise ValueError(f"shards={s} but only {avail} device(s) are visible for "
-                             f"{torch.device(device).type} data; lower shards")
+                             f"{torch.device(device).type} data; set {MESH_DEVICES_ENV}={s} "
+                             "or lower shards")
         return max(1, min(s, n // (k + 2)))
 
     def neighbors(self, x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -32,6 +32,7 @@ from repro_torch.core.tsne import (  # noqa: E402
     TsneConfig, bh_gradient, init_state, preprocess, tsne_step,
 )
 from repro_torch.data.datasets import make_dataset  # noqa: E402
+from repro_torch.device import MESH_DEVICES_ENV  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import tsne_run  # noqa: E402
 from repro_torch.neighbors import (  # noqa: E402
@@ -567,3 +568,117 @@ def test_attractive_launch_passes_the_row_offset(monkeypatch):
     (name, source, _, *args), = launches
     assert (name, source) == ("attractive_ell", "attractive")
     assert args[3] is None and args[-3:] == [4, 3, 6] and f.shape == (4, 2)
+
+
+# ---------------------------------------------------- the forced mesh size --
+
+FORCED_N, FORCED_K, FORCED_PERPLEXITY = 600, 10, 3.0
+
+FORCED_REFERENCE = """
+import sys
+import jax, numpy as np
+from repro.core.tsne import TsneConfig, preprocess
+from repro.data.datasets import make_dataset
+from repro.neighbors import ShardedNeighbors
+
+S = int(sys.argv[2])
+assert len(jax.devices()) == S, jax.devices()
+grid, _ = make_dataset("digits")
+x = (np.round(grid * 4.0) / 4.0).astype(np.float32)[:{FORCED_N}]
+idx, d2 = ShardedNeighbors(mode="exact").neighbors(x, {FORCED_K})   # shards=None: all S
+cfg = TsneConfig(perplexity={FORCED_PERPLEXITY}, neighbor_method="sharded", knn_shards=S,
+                 neighbor_options={{"mode": "exact"}})
+graph, _ = preprocess(x, cfg)
+np.savez(sys.argv[1], idx=np.asarray(idx), d2=np.asarray(d2),
+         cols=np.asarray(graph.p_cols), vals=np.asarray(graph.p_vals))
+"""
+
+
+@pytest.fixture(scope="module")
+def forced_ref(tmp_path_factory):
+    """JAX's sharded neighbours and preprocess on S = 2 and 4 forced host
+    devices, one subprocess each."""
+    out = {}
+    for s in (2, 4):
+        path = tmp_path_factory.mktemp(f"jax_forced_{s}") / "ref.npz"
+        env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={s}",
+                   PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+        run = subprocess.run([sys.executable, "-c", FORCED_REFERENCE.format(**globals()),
+                              str(path), str(s)], capture_output=True, text=True, env=env,
+                             timeout=600)
+        assert run.returncode == 0, f"STDOUT:\n{run.stdout}\nSTDERR:\n{run.stderr[-4000:]}"
+        with np.load(path) as f:
+            out[s] = dict(f)
+    return out
+
+
+@pytest.fixture
+def forced(monkeypatch):
+    """Sets the forced mesh size for one test (unset again afterwards)."""
+    def force(s):
+        monkeypatch.setenv(MESH_DEVICES_ENV, str(s))
+    monkeypatch.delenv(MESH_DEVICES_ENV, raising=False)
+    return force
+
+
+@pytest.mark.parametrize("s", [2, 4])
+def test_forced_mesh_size_matches_jax_host_devices(forced_ref, forced, s):
+    forced(s)
+    assert sharded.visible_devices(CPU) == (CPU,) * s
+    assert ShardedNeighbors().resolve_shards(FORCED_N, FORCED_K, CPU) == s
+    x = T(grid_digits()[:FORCED_N])
+    idx, d2 = ShardedNeighbors(mode="exact").neighbors(x, FORCED_K)
+    np.testing.assert_array_equal(idx.numpy(), forced_ref[s]["idx"])
+    # exact grid distances: equal in both packages
+    np.testing.assert_array_equal(d2.numpy(), forced_ref[s]["d2"])
+
+
+@pytest.mark.parametrize("s", [2, 4])
+def test_knn_shards_preprocess_under_forced_mesh_matches_jax(forced_ref, forced, s):
+    forced(s)
+    cfg = TsneConfig(perplexity=FORCED_PERPLEXITY, neighbor_method="sharded", knn_shards=s,
+                     neighbor_options={"mode": "exact"})
+    graph, timings = preprocess(T(grid_digits()[:FORCED_N]), cfg)
+    assert timings["neighbor_method"] == "sharded"
+    np.testing.assert_array_equal(graph.p_cols.numpy(), forced_ref[s]["cols"])
+    # symmetrization is bit-identical; bsp agrees to its rtol=1e-5
+    np.testing.assert_allclose(graph.p_vals.numpy(), forced_ref[s]["vals"], rtol=1e-5,
+                               atol=1e-9)
+
+
+def test_knn_shards_default_mode_runs_under_forced_mesh(forced):
+    forced(2)
+    cfg = TsneConfig(perplexity=10.0, neighbor_method="sharded", knn_shards=2)
+    graph, _ = preprocess(T(grid_digits()[:400]), cfg)
+    np.testing.assert_allclose(float(graph.p_vals.sum()), 1.0, rtol=1e-4)
+    assert ((graph.p_cols >= 0) & (graph.p_cols < 400)).all()
+
+
+def test_forced_mesh_repeats_one_card(forced, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    forced(4)
+    card = torch.device("cuda", 0)
+    assert dist.make_mesh(4).devices == (card,) * 4
+    assert dist.make_mesh(2, "cuda").devices == (card,) * 2
+    assert sharded.visible_devices(card) == (card,) * 4
+    with pytest.raises(ValueError, match="needs 5 cards, but 4"):
+        dist.make_mesh(5)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert dist.make_mesh(4).devices == tuple(torch.device("cuda", i) for i in (0, 1, 0, 1))
+    forced(3)
+    assert dist.make_mesh(3, "cpu").devices == (CPU,) * 3
+    with pytest.raises(ValueError, match="needs 4 CPU devices, but 3"):
+        dist.make_mesh(4, "cpu")
+    forced(0)
+    with pytest.raises(ValueError, match=MESH_DEVICES_ENV):
+        dist.make_mesh(1, "cpu")
+
+
+def test_tsne_run_devices_under_forced_mesh(forced, tmp_path, capsys):
+    forced(4)
+    out = tmp_path / "emb.npy"
+    tsne_run.main(["--device", "cpu", "--devices", "4", "--n", "258", "--iters", "100",
+                   "--perplexity", "10", "--out", str(out)])
+    assert np.load(out).shape == (256, 2)
+    assert "4 shards, n=256" in capsys.readouterr().out

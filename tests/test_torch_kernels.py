@@ -248,6 +248,19 @@ def test_registry_lists_the_six_ported_kernels():
         assert name in ops.LAUNCHES
 
 
+def test_get_kernel_dispatch():
+    # tests/test_kernels.py::test_kernel_registry_dispatch, with the port's impls
+    assert ops.get_kernel("bsp_search", "plain") is bsp.binary_search_perplexity_plain
+    assert ops.get_kernel("bsp_search") is ops.bsp_search_cuda
+    assert ops.get_kernel("bh_traverse", "cuda") is ops.bh_traverse_cuda
+    for name in ops.available_kernels():
+        assert ops.get_kernel(name, "plain") is ops.kernel_registry()[name]["plain"]
+    with pytest.raises(ValueError, match="unknown kernel"):
+        ops.get_kernel("nope")
+    with pytest.raises(ValueError, match="impl must be"):
+        ops.get_kernel("bsp_search", "pallas")
+
+
 def test_each_c_entry_is_bound_once(monkeypatch):
     # the library is loaded and argtypes / restype set at the first launch
     # only; later launches reuse the bound function
