@@ -194,6 +194,19 @@ result line):
                centres of mass and forces allclose(rtol=1e-5,
                atol=1e-6)), and the two attractive passes against each
                other at that tolerance.
+16. contracts -- (run right after phase 2, before the profiler's other
+               uses) python -m repro_torch.analysis --gate (the launch-contract
+               pass over every kernel at K = 1024, 257 lattice nodes,
+               D = 1024 and N = 1 291 337, on meta tensors, and the
+               host-sync and concurrency passes) must report no new
+               finding; then each of the seven kernels is launched once
+               at a small shape under torch.profiler, and each kernel
+               event's grid, block and dynamic shared memory (the trace's
+               static + dynamic less ptxas's static) must equal
+               ops.launch_plan's for the call's integer arguments;
+               registers x threads <= 65 536 and shared memory <=
+               232 448 B.  One line a kernel with the card's name and
+               power limit; what the trace does not give is "not recorded".
 
 Every kernel must be launched by at least one of the two fits.  Each
 driven path (the two fits, the service, the sharded fit and the mouse
@@ -203,7 +216,7 @@ after.
 The line before the last is the kernels JSON object (each row's
 ``sharded_launches`` from the sharded fit, ``mouse_launches`` from the
 mouse pipeline and, for its four kernels, ``mouse_*`` times at
-N = 1 291 337); the last line is
+N = 1 291 337, and ``launch_contract``, phase 16's records); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -211,6 +224,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -288,7 +302,8 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict[str, str]:
+    """Phase 2; returns each compiled source's -Xptxas -v report."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -301,6 +316,7 @@ def phase_build() -> None:
                 log(f"  {name}:   {line.strip()}")
     log(f"  pairwise: {build.load('pairwise').pairwise_smem_bytes()} bytes of dynamic "
         "shared memory a block")
+    return logs
 
 
 def kernel_ms(fn, name: str, reps: int = 10) -> float | None:
@@ -2359,6 +2375,157 @@ def phase_naive(label: str, y: torch.Tensor, graph) -> dict:
     return out
 
 
+# registry name -> the CUDA kernels (function names in csrc/*.cu) of one
+# wrapper call, in launch order
+CONTRACT_KERNELS = {
+    "pairwise_sq_dists": ("pairwise_kernel",), "bsp_search": ("bsp_kernel",),
+    "morton_encode": ("morton_kernel",), "attractive_ell": ("attractive_kernel",),
+    "fft_spread": ("spread_kernel",), "fft_gather": ("gather_kernel",),
+    "bh_traverse": ("traverse_pack_kernel", "traverse_walk_kernel"),
+}
+REGISTERS_A_SM = 65_536
+
+
+def ptxas_static_smem(logs: dict[str, str]) -> dict[str, int]:
+    """Mangled kernel name -> static shared memory (bytes) from the builds'
+    ``-Xptxas -v`` reports: each entry's "Used N registers" line, which
+    names "M bytes smem" only where M > 0."""
+    out, entry = {}, None
+    for text in logs.values():
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and "Used" in line and "registers" in line:
+                out[entry] = int(line.split("bytes smem")[0].rsplit(",", 1)[-1]) \
+                    if "bytes smem" in line else 0
+                entry = None
+    return out
+
+
+def mangled_key(name: str) -> str | None:
+    """The part of an Itanium-mangled name that identifies the kernel a
+    profiler event names (``ns::bsp_kernel<8>(...)`` -> ``10bsp_kernelILi8EE``)."""
+    m = re.search(r"(\w+)(?:<([^<>]*)>)?\(", name)
+    if m is None:
+        return None
+    base, targ = m.groups()
+    if targ is None:
+        return f"{len(base)}{base}E"
+    code = {"true": "Lb1E", "false": "Lb0E"}.get(targ.strip(), f"Li{targ.strip()}E")
+    return f"{len(base)}{base}I{code}E"
+
+
+def contract_events(fn, bases: tuple[str, ...], path: Path) -> list[dict]:
+    """The first kernel event of each of ``bases`` (in order) in a
+    torch.profiler trace of ``fn()``, exported as a Chrome trace to
+    ``path``; three traces at most, since a trace can drop kernel events."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("cat") == "kernel"]
+        found = [next((e for e in events if f"{b}<" in e["name"] or f"{b}(" in e["name"]),
+                      None) for b in bases]
+        if all(found):
+            return found
+    missing = [b for b, e in zip(bases, found) if e is None]
+    fail(f"phase 16: three torch.profiler traces recorded no launch of {missing}")
+
+
+def phase_contracts(smi: str, build_logs: dict[str, str]) -> dict[str, list[dict]]:
+    """Phase 16: the static-analysis suite with --gate (the launch-contract
+    pass over every kernel at the config's envelope, on meta tensors, and
+    the host-sync and concurrency passes over src/repro_torch), then each
+    of the seven kernels launched once at a small shape under
+    torch.profiler.  From each kernel event: grid, block, registers a
+    thread, shared memory (static + dynamic; static from ptxas -v) and the
+    estimated achieved occupancy.  Grid, block and dynamic shared memory
+    must equal ops.launch_plan's for the call's integer arguments;
+    registers x threads <= 65 536 and static + dynamic <= SMEM_LIMIT.
+    What the trace does not give is "not recorded"."""
+    from repro_torch.analysis.cli import main as analysis_main
+    from repro_torch.analysis.launch_contracts import record_launches
+    from repro_torch.core import fft_repulsion
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    if analysis_main(["--gate"]) != 0:
+        fail("phase 16: python -m repro_torch.analysis --gate reports new findings")
+    log(f"contracts: analysis --gate clean in {time.perf_counter() - t0:.2f} s")
+    static = ptxas_static_smem(build_logs)
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    n, k, nodes = 5000, 90, 97
+
+    def dev(*shape):
+        return torch.rand(*shape, generator=gen).cuda()
+
+    y = dev(n, 2) * 20 - 10
+    cent, r_span = torch.tensor([0.0, 0.0]).cuda(), torch.tensor(10.0).cuda()
+    cols = torch.randint(0, n, (n, k), generator=gen, dtype=torch.int32).cuda()
+    p_len = torch.randint(0, k + 1, (n,), generator=gen, dtype=torch.int32).cuda()
+    base, wx, wy, _ = fft_repulsion.interp_coords(y, (nodes - 1) // 2)
+    y_s, tree, summ, _ = walk_inputs(y)
+    calls = {
+        "pairwise_sq_dists": lambda: ops.pairwise_sq_dists(dev(300, 64), dev(1000, 64)),
+        "bsp_search": lambda: ops.bsp_search(dev(1000, k) * 10, 30.0),
+        "morton_encode": lambda: ops.morton_encode(y, cent, r_span),
+        "attractive_ell": lambda: ops.attractive_ell(y, cols, dev(n, k), p_len),
+        "fft_spread": lambda: ops.fft_spread(base, wx, wy, dev(n, 3), nodes),
+        "fft_gather": lambda: ops.fft_gather(dev(nodes, nodes, 4), base, wx, wy),
+        "bh_traverse": lambda: ops.bh_traverse(y_s, tree, summ, 0.5),
+    }
+    out = {}
+    for name, call in calls.items():
+        records = []
+        with record_launches(records):     # the call's integer arguments; nothing runs
+            call()
+        plans = ops.launch_plan(name, *records[0].values)
+        if len(records) != 1 or len(plans) != len(CONTRACT_KERNELS[name]):
+            fail(f"phase 16: {name}: {len(records)} C entry calls, {len(plans)} launch "
+                 f"plans, expected 1 and {len(CONTRACT_KERNELS[name])}")
+        events = contract_events(call, CONTRACT_KERNELS[name], BUILD / "contracts.json")
+        rows = []
+        for base_name, plan, ev in zip(CONTRACT_KERNELS[name], plans, events):
+            args = ev.get("args", {})
+            if "grid" not in args or "block" not in args:
+                fail(f"phase 16: the trace's kernel events carry no grid/block; their "
+                     f"argument names: {sorted(args)}")
+            grid, block = tuple(args["grid"]), tuple(args["block"])
+            regs = args.get("registers per thread")
+            smem_total = args.get("shared memory")
+            key = mangled_key(ev["name"])
+            s_static = next((v for m, v in static.items() if key and key in m), None)
+            dynamic = None if smem_total is None or s_static is None else smem_total - s_static
+            row = dict(kernel=base_name, grid=list(grid), block=list(block),
+                       plan_grid=list(plan.grid), plan_block=list(plan.block),
+                       plan_smem_dynamic=plan.smem_bytes,
+                       registers_per_thread=regs if regs is not None else "not recorded",
+                       smem_static=s_static if s_static is not None else "not recorded",
+                       smem_dynamic=dynamic if dynamic is not None else "not recorded",
+                       smem_total=smem_total if smem_total is not None else "not recorded",
+                       occupancy_pct=args.get("est. achieved occupancy %", "not recorded"),
+                       card=smi)
+            if grid != plan.grid or block != plan.block:
+                fail(f"phase 16: {base_name} launched grid {grid} block {block}, "
+                     f"launch_plan gives {plan.grid} {plan.block}")
+            if dynamic is not None and dynamic != plan.smem_bytes:
+                fail(f"phase 16: {base_name} took {dynamic} bytes of dynamic shared memory, "
+                     f"launch_plan gives {plan.smem_bytes}")
+            threads = block[0] * block[1] * block[2]
+            if regs is not None and regs * threads > REGISTERS_A_SM:
+                fail(f"phase 16: {base_name}: {regs} registers x {threads} threads > "
+                     f"{REGISTERS_A_SM}")
+            if smem_total is not None and smem_total > ops.SMEM_LIMIT:
+                fail(f"phase 16: {base_name}: {smem_total} bytes of shared memory > "
+                     f"{ops.SMEM_LIMIT}")
+            log("contract: " + json.dumps(row))
+            rows.append(row)
+        out[name] = rows
+    return out
+
+
 BH_KERNELS = ("pairwise_sq_dists", "bsp_search", "morton_encode", "attractive_ell",
               "bh_traverse")
 FFT_KERNELS = ("pairwise_sq_dists", "bsp_search", "attractive_ell", "fft_spread",
@@ -2380,10 +2547,10 @@ def main() -> None:
                          "iterating on the million-point pipeline; no kernels line")
     args = ap.parse_args()
 
-    phase_device()
+    smi = phase_device()
     from repro_torch.data.datasets import make_dataset
     from repro_torch.kernels import ops
-    phase_build()
+    build_logs = phase_build()
 
     if args.mouse_only:
         _, _, _, mouse_run = phase_mouse()
@@ -2404,6 +2571,9 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    # phase 16 first: late in a long run, torch.profiler on the card's
+    # machine has recorded no kernel event at all (phase 14's device times)
+    contracts = phase_contracts(smi, build_logs)
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
 
@@ -2448,6 +2618,7 @@ def main() -> None:
         r.update(sharded_extra.get(r["name"], {}))
         r["mouse_launches"] = mouse_launches[r["name"]]
         r.update(mouse_extra.get(r["name"], {}))
+        r["launch_contract"] = contracts[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -79,6 +79,7 @@ def bh_repulsion_sorted(y_sorted: torch.Tensor, tree: LinearQuadtree,
     it = 0
     while True:
         active = ptr < tree.n_nodes
+        # repro-lint: disable=RT101 -- the plain walk's early exit; the card runs traverse.cu
         if it % CHECK_EVERY == 0 and not bool(active.any()):
             break
         it += 1

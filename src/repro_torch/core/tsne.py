@@ -454,7 +454,7 @@ def descend(state: TsneState, graph: NeighborGraph, config: TsneConfig, backend,
     kl_hist = []
     kl = float("nan")
     it = 0
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()   # repro-lint: disable=RT104 -- the observer's elapsed_s only
     phase_name = phase_ctx = phase_sp = None
     try:
         for it in range(config.n_iter):
@@ -472,17 +472,20 @@ def descend(state: TsneState, graph: NeighborGraph, config: TsneConfig, backend,
             state, stats = tsne_step(state, graph, exag, mom, backend=backend,
                                      lr=lr, min_gain=config.min_gain)
             if (it + 1) % kl_every == 0 or it == config.n_iter - 1:
+                # repro-lint: disable=RT101 -- the KL history and early stop, every kl_every steps
                 kl = float(stats.kl)
-                grad_norm = float(stats.grad_norm)
+                grad_norm = float(stats.grad_norm)  # repro-lint: disable=RT101 -- as above
                 kl_hist.append((it + 1, kl))
                 metrics.histogram("fit.grad_norm").observe(grad_norm)
                 metrics.gauge("fit.kl").set(kl)
                 metrics.gauge("fit.exaggeration").set(exag)
                 if tracer.enabled:
                     # trace-only extras (one more read from the device)
+                    # repro-lint: disable=RT101 -- trace-only
                     gain_mean = float(torch.mean(state.gains))
                     metrics.histogram("fit.gain_mean").observe(gain_mean)
                     with tracer.span("checkpoint", iteration=it + 1, kl=kl,
+                                     # repro-lint: disable=RT101 -- trace-only, as above
                                      grad_norm=grad_norm, z=float(stats.z),
                                      exaggeration=exag, momentum=mom,
                                      gain_mean=gain_mean):
@@ -490,8 +493,10 @@ def descend(state: TsneState, graph: NeighborGraph, config: TsneConfig, backend,
                 if observer is not None:
                     observer(IterationStats(
                         iteration=it + 1, kl=kl, grad_norm=grad_norm,
+                        # repro-lint: disable=RT101 -- only for an observer, every kl_every steps
                         z=float(stats.z), max_traversal=int(stats.max_traversal),
                         exaggeration=exag, momentum=mom,
+                        # repro-lint: disable=RT104 -- the observer's elapsed_s only
                         elapsed_s=time.perf_counter() - t0))
                 if grad_norm < config.min_grad_norm:
                     break

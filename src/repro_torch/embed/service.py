@@ -236,6 +236,7 @@ class EmbeddingService:
             sp.sync(grad_norm)
         self.ticks += 1
         m.counter("service.ticks").inc()
+        # repro-lint: disable=RT101 -- retirement: the host picks the lanes to retire each tick
         gn = grad_norm.cpu().numpy()
         y_now = None
         for s, req in enumerate(self.active):
@@ -244,12 +245,13 @@ class EmbeddingService:
             self._steps[s] += 1
             if gn[s] < cfg.min_grad_norm or self._steps[s] >= cfg.n_iter:
                 if y_now is None:
+                    # repro-lint: disable=RT101 -- the retired lanes' points, on a tick that retires
                     y_now = self._state.y.cpu().numpy()
                 req.y = y_now[s].copy()
                 req.n_steps = int(self._steps[s])
                 req.grad_norm = float(gn[s])
                 req.done = True
-                req.finished_at = time.perf_counter()
+                req.finished_at = time.perf_counter()  # repro-lint: disable=RT104 -- latency stamp
                 with self._lock:
                     self.completed.append(req)
                 self.active[s] = None

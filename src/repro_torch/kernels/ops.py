@@ -493,6 +493,111 @@ def fft_gather_cuda(pot, base, wx, wy) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Launch plans
+# ---------------------------------------------------------------------------
+
+# The launch constants of the C entries, as csrc/*.cu define them.
+PAIRWISE_TILE = 128           # pairwise.cu BM = BN: output rows and columns a block
+PAIRWISE_THREADS = 256
+PAIRWISE_SMEM = 122_880       # pairwise.cu SMEM_BYTES: 3 stages x (BM + BN) x 40 floats
+BSP_WARPS = 4                 # bsp.cu WARPS; 32 / lanes rows a warp
+MORTON_THREADS = 256
+ATTRACTIVE_WARPS = 8          # attractive.cu WARPS: a warp a row
+GATHER_THREADS = 128          # gather.cu THREADS: a thread a point
+TRAVERSE_THREADS = 256        # traverse.cu THREADS (the walk, a thread a point)
+PACK_THREADS = 256            # traverse.cu PACK_THREADS (the pack, a thread a node)
+
+
+class Cover(NamedTuple):
+    """grid[axis] blocks of ``per_block`` items each must reach ``extent``
+    items of the output (``what``)."""
+    what: str
+    axis: int
+    per_block: int
+    extent: int
+
+
+class LaunchPlan(NamedTuple):
+    """One kernel launch's geometry, as its C entry computes it from the
+    integer arguments: grid and block (x, y, z), dynamic shared memory, and
+    what the grid has to cover."""
+    grid: tuple[int, int, int]
+    block: tuple[int, int, int]
+    smem_bytes: int
+    covers: tuple[Cover, ...] = ()
+
+
+def _c_int(v: int) -> int:
+    """``v`` wrapped to a C int (two's complement, 32 bits)."""
+    return (v + 2**31) % 2**32 - 2**31
+
+
+def _c_ceil(a: int, b: int) -> int:
+    """``(a + b - 1) / b`` in C int arithmetic (wraps, truncates to zero)."""
+    s = _c_int(a + b - 1)
+    return -(-s // b) if s < 0 else s // b
+
+
+def _dim3(*dims: int) -> tuple[int, int, int]:
+    """dim3 of C ints or long longs: each converted to unsigned 32 bits."""
+    return tuple(d % 2**32 for d in (*dims, 1, 1)[:3])
+
+
+def launch_plan(name: str, *int_args: int) -> tuple[LaunchPlan, ...]:
+    """The launches of registered kernel ``name``'s C entry for its integer
+    arguments (in the order ``_launch`` passes them): one plan a launch,
+    none where the entry returns before launching.  Written from each
+    ``.cu``'s host code: the entry sees each ``c_int`` argument wrapped to
+    32 bits (ctypes does not check) and computes in C int arithmetic, so a
+    size past int32 gives the grid the card would be given, while each
+    ``Cover`` keeps the true extent."""
+    seen = [_c_int(v) for v in int_args]     # as the C entry receives them
+    if name == "pairwise_sq_dists":
+        nq, nc, _d = int_args
+        if min(seen[:2]) <= 0:
+            return ()
+        return (LaunchPlan(
+            _dim3(_c_ceil(seen[1], PAIRWISE_TILE), _c_ceil(seen[0], PAIRWISE_TILE)),
+            _dim3(PAIRWISE_THREADS), PAIRWISE_SMEM,
+            (Cover("columns", 0, PAIRWISE_TILE, nc), Cover("rows", 1, PAIRWISE_TILE, nq))),)
+    if name == "bsp_search":
+        n = int_args[0]
+        lanes = seen[3]
+        if seen[0] <= 0 or not 1 <= lanes <= 32:
+            return ()
+        rows = BSP_WARPS * (32 // lanes)
+        return (LaunchPlan(_dim3(_c_ceil(seen[0], rows)), _dim3(BSP_WARPS * 32), 0,
+                           (Cover("rows", 0, rows, n),)),)
+    if name in ("morton_encode", "attractive_ell", "fft_gather"):
+        n = int_args[0]
+        if seen[0] <= 0:
+            return ()
+        what, per_block, threads = {
+            "morton_encode": ("points", MORTON_THREADS, MORTON_THREADS),
+            "attractive_ell": ("rows", ATTRACTIVE_WARPS, ATTRACTIVE_WARPS * 32),
+            "fft_gather": ("points", GATHER_THREADS, GATHER_THREADS)}[name]
+        return (LaunchPlan(_dim3(_c_ceil(seen[0], per_block)), _dim3(threads), 0,
+                           (Cover(what, 0, per_block, n),)),)
+    if name == "fft_spread":
+        nodes, smem = int_args[1], int_args[6]      # smem is a long long
+        rows, slices, warps = seen[3:6]
+        if seen[0] < 0 or seen[1] <= 0 or rows <= 0:
+            return ()
+        return (LaunchPlan(_dim3(slices, _c_ceil(seen[1], rows)), _dim3(32 * warps), smem,
+                           (Cover("lattice rows", 1, rows, nodes),)),)
+    if name == "bh_traverse":
+        n, _n_points, cap = int_args
+        if seen[0] <= 0 or seen[2] <= 0:
+            return ()
+        # traverse.cu's blocks() divides in long long
+        return (LaunchPlan(_dim3(-(-seen[2] // PACK_THREADS)), _dim3(PACK_THREADS), 0,
+                           (Cover("nodes", 0, PACK_THREADS, cap),)),
+                LaunchPlan(_dim3(-(-seen[0] // TRAVERSE_THREADS)), _dim3(TRAVERSE_THREADS), 0,
+                           (Cover("points", 0, TRAVERSE_THREADS, n),)))
+    raise ValueError(f"no launch plan for kernel {name!r}")
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 

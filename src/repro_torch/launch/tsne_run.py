@@ -43,6 +43,7 @@ class DistributedRun(NamedTuple):
 def _synchronize(mesh) -> None:
     for dev in dict.fromkeys(mesh.devices):
         if dev.type == "cuda":
+            # repro-lint: disable=RT105 -- the stage clock of DistributedRun.timings, between stages
             torch.cuda.synchronize(dev)
 
 

@@ -248,6 +248,144 @@ def test_registry_lists_the_six_ported_kernels():
         assert name in ops.LAUNCHES
 
 
+def _cu_const(source: str, name: str) -> int:
+    """``constexpr int NAME = <int>;`` (or ``const int name = <int>;``) of csrc/<source>.cu."""
+    text = (ROOT / "src/repro_torch/csrc" / f"{source}.cu").read_text()
+    return int(re.search(rf"\bconst(?:expr)? int {name} = (\d+);", text).group(1))
+
+
+def _plans(name, *args):
+    """(integer arguments, launch plans) of one call of ``name``'s CUDA
+    wrapper on meta tensors, recorded in place of the launch."""
+    from repro_torch.analysis.launch_contracts import record_launches
+    records = []
+    with record_launches(records):
+        ops.kernel_registry()[name]["cuda"](*args)
+    (rec,) = records
+    return rec.values, ops.launch_plan(name, *rec.values)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _launch_plan_pairwise():
+    assert (_cu_const("pairwise", "BM"), _cu_const("pairwise", "BN")) == (ops.PAIRWISE_TILE,) * 2
+    warps = (ops.PAIRWISE_TILE // _cu_const("pairwise", "WM")) \
+        * (ops.PAIRWISE_TILE // _cu_const("pairwise", "WN"))
+    assert 32 * warps == ops.PAIRWISE_THREADS
+    assert ops.PAIRWISE_SMEM == 4 * _cu_const("pairwise", "STAGES") * 2 * ops.PAIRWISE_TILE \
+        * (_cu_const("pairwise", "BK") + 8)
+    for nq, nc, d in [(1, 1, 1), (1, 60_000, 784), (3, 8192, 784), (129, 257, 8),
+                      (512, 2048, 1024), (4096, 8192, 784)]:
+        ints, (plan,) = _plans("pairwise_sq_dists", _meta(nq, d), _meta(nc, d), _meta(nq),
+                               _meta(nc))
+        assert ints == (nq, nc, d)
+        assert plan[:3] == ((_ceil(nc, 128), _ceil(nq, 128), 1), (256, 1, 1), 122_880)
+
+
+def _launch_plan_bsp():
+    assert _cu_const("bsp", "WARPS") == ops.BSP_WARPS
+    ks = sorted({1, 1024} | {k for k in range(2, 1025) if ops.bsp_plan(k) != ops.bsp_plan(k - 1)})
+    for k in ks:
+        for n in (1, 33, 70_000):
+            ints, (plan,) = _plans("bsp_search", _meta(n, k), 30.0)
+            lanes, values = ops.bsp_plan(k)
+            assert ints == (n, k, 64, lanes, values)
+            rows = ops.BSP_WARPS * 32 // lanes
+            assert plan[:3] == ((_ceil(n, rows), 1, 1), (128, 1, 1), 0)
+            assert plan.covers[0].per_block == rows
+
+
+def _launch_plan_morton():
+    text = (ROOT / "src/repro_torch/csrc/morton.cu").read_text()
+    assert f"const int threads = {ops.MORTON_THREADS};" in text
+    for n in (1, 255, 256, 257, 70_000, 1_291_337):
+        ints, (plan,) = _plans("morton_encode", _meta(n, 2), _meta(2), _meta())
+        assert ints == (n, 16)
+        assert plan[:3] == ((_ceil(n, 256), 1, 1), (256, 1, 1), 0)
+
+
+def _launch_plan_attractive():
+    assert _cu_const("attractive", "WARPS") == ops.ATTRACTIVE_WARPS
+    for n, w in [(1, 1), (9, 90), (70_000, 1024)]:
+        ints, (plan,) = _plans("attractive_ell", _meta(n, 2), _meta(n, w, dtype=torch.int32),
+                               _meta(n, w))
+        assert ints == (n, w, 0)
+        assert plan[:3] == ((_ceil(n, 8), 1, 1), (256, 1, 1), 0)
+
+
+def _launch_plan_spread():
+    assert _cu_const("spread", "SCAN") == ops.SPREAD_SCAN
+    assert _cu_const("spread", "MAX_SLICES") == ops.SPREAD_MAX_SLICES
+    for nodes in (3, 97, 129, 257):
+        for n in (0, 1, 5000, 70_000):
+            for c in (3, 4):
+                base = _meta(n, 2, dtype=torch.int32)
+                ints, (plan,) = _plans("fft_spread", base, _meta(n, 3), _meta(n, 3),
+                                       _meta(n, c), nodes)
+                rows, slices, warps, smem = ops.spread_plan(n, nodes, c)
+                assert ints == (n, nodes, c, rows, slices, warps, smem)
+                assert smem == ops.spread_smem_bytes(nodes, c, rows, warps)
+                assert plan[:3] == ((slices, _ceil(nodes, rows), 1), (32 * warps, 1, 1), smem)
+
+
+def _launch_plan_gather():
+    assert _cu_const("gather", "THREADS") == ops.GATHER_THREADS
+    for nodes in (3, 257):
+        for n in (1, 128, 129, 70_000):
+            ints, (plan,) = _plans("fft_gather", _meta(nodes, nodes, 4),
+                                   _meta(n, 2, dtype=torch.int32), _meta(n, 3), _meta(n, 3))
+            assert ints == (n, nodes)
+            assert plan[:3] == ((_ceil(n, 128), 1, 1), (128, 1, 1), 0)
+
+
+def _launch_plan_traverse():
+    from repro_torch.analysis.launch_contracts import _walk_args
+    assert _cu_const("traverse", "THREADS") == ops.TRAVERSE_THREADS
+    assert _cu_const("traverse", "PACK_THREADS") == ops.PACK_THREADS
+    for n in (1, 33, 70_000):
+        for compress in (True, False):
+            y, tree, summary, theta = _walk_args(n, compress)
+            for pos in (None, _meta(max(1, n // 4), dtype=torch.int32)):
+                m = n if pos is None else pos.shape[0]
+                ints, plans = _plans("bh_traverse", y, tree, summary, theta, None, pos)
+                assert ints == (m, n, tree.capacity)
+                assert [p[:3] for p in plans] == [
+                    ((_ceil(tree.capacity, 256), 1, 1), (256, 1, 1), 0),
+                    ((_ceil(m, 256), 1, 1), (256, 1, 1), 0)]
+
+
+@pytest.mark.parametrize("name", ["pairwise_sq_dists", "bsp_search", "morton_encode",
+                                  "attractive_ell", "fft_spread", "fft_gather",
+                                  "bh_traverse"])
+def test_launch_plan_agrees_with_the_wrappers(name):
+    # ops.launch_plan, from the integer arguments each CUDA wrapper passes
+    # its C entry (recorded on meta tensors), against the plan helpers the
+    # wrappers use and the .cu sources' launch constants, over a sweep of shapes
+    {"pairwise_sq_dists": _launch_plan_pairwise, "bsp_search": _launch_plan_bsp,
+     "morton_encode": _launch_plan_morton, "attractive_ell": _launch_plan_attractive,
+     "fft_spread": _launch_plan_spread, "fft_gather": _launch_plan_gather,
+     "bh_traverse": _launch_plan_traverse}[name]()
+
+
+def test_launch_plan_mirrors_c_int_arithmetic():
+    # a size past int32 reaches the C entry wrapped: morton's (n + 255) / 256
+    # then overflows to a negative grid, which dim3 makes a huge unsigned one
+    (plan,) = ops.launch_plan("morton_encode", 2**31 - 10, 16)
+    assert plan.grid[0] > 2**31 - 1 and plan.covers[0].extent == 2**31 - 10
+    # 2^32 + 5 points wrap to 5: one block, which covers 5 of them
+    (plan,) = ops.launch_plan("morton_encode", 2**32 + 5, 16)
+    assert plan.grid == (1, 1, 1) and plan.covers[0].extent == 2**32 + 5
+    assert ops.launch_plan("fft_gather", 0, 257) == ()     # the entry returns first
+    with pytest.raises(ValueError, match="no launch plan"):
+        ops.launch_plan("nope", 1)
+
+
 def test_get_kernel_dispatch():
     # tests/test_kernels.py::test_kernel_registry_dispatch, with the port's impls
     assert ops.get_kernel("bsp_search", "plain") is bsp.binary_search_perplexity_plain
