@@ -4,6 +4,7 @@
     python3 chip_smoke.py --n-iter 300 --exaggeration-iters 150   # shorter descents
     python3 chip_smoke.py --sharded-only   # phases 1, 2, 5 and 13 (for several cards)
     python3 chip_smoke.py --mouse-only     # phases 1, 2, 14 and 15 (the mouse embedding only)
+    python3 chip_smoke.py --lm-only        # phases 1, 2 and 17 (the LM serving path only)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -207,21 +208,61 @@ result line):
                registers x threads <= 65 536 and shared memory <=
                232 448 B.  One line a kernel with the card's name and
                power limit; what the trace does not give is "not recorded".
+17. lm       -- (run right after phase 16, while the card is empty) the LM
+               serving path at full width: deepseek_7b (30 layers,
+               d_model 4 096, 6.91 B parameters in float32) initialised
+               by the port's own init from a seeded generator, on cuda:0
+               with TF32 off.  (a) compute_dtype float32: prefill of 2 x 64
+               tokens against 64 decode steps, last logits within
+               rtol 1e-3 / atol 1e-4 (the reference's
+               test_decode_matches_prefill) and the same argmax.  (b)
+               bf16, one prompt of 1 300 tokens (three chunks of 512, the
+               last ragged): the prefill's last logits through
+               chunked_attention and through the plain attention core,
+               each within LM_BF16_REL of the logits' scale of the float32
+               model and of each other; the bf16 prefill timed.  (c)
+               ServeEngine(slots=8, max_seq=512) in bf16 over 16 requests
+               (prompts of 64-192 seeded tokens, 64 new tokens each): all
+               complete inside the vocabulary; one request served alone
+               gives its pooled run's first logits (LM_ALONE_REL); prints
+               the median decode tick against its byte bound, generated
+               tokens/s, the host's share of a tick (the kernel time of
+               five profiled ticks of this run against the median of its
+               other ticks), peak device memory and the serve.* snapshot.  (d) repro_torch.examples.lm_embedding_atlas
+               at its defaults (the reduced deepseek_7b's prefill states,
+               a Barnes-Hut TSNE, 32 points grown through the
+               EmbeddingService), launch counts set to 0 just before and
+               read just after: pairwise, bsp, Morton, attractive and the
+               walk each launched; KL, intra / inter, the service's p50;
+               then each of the five held against its plain twin on the
+               atlas's own inputs (x_fit [96, 50], its KNN distances, the
+               admissions' queries, the fitted embedding and graph), at
+               phase 3's tolerances.  (e) at B = 1, S = 1 300, H = 32,
+               dh = 128, bf16: chunked_attention against the plain core on
+               the same q, k, v, causal and not, within LM_ATTN_REL of each
+               row's scale, and three planted faults (causal mask dropped,
+               diagonal dropped, ragged padding unmasked) each beyond it;
+               F.scaled_dot_product_attention(is_causal=True) timed beside
+               chunked_attention: the library yardstick, used nowhere.
 
 Every kernel must be launched by at least one of the two fits.  Each
-driven path (the two fits, the service, the sharded fit and the mouse
-pipeline) has its launch counts set to 0 just before it and read just
-after.
+driven path (the two fits, the service, the sharded fit, the mouse
+pipeline and the LM atlas) has its launch counts set to 0 just before it
+and read just after.
 
 The line before the last is the kernels JSON object (each row's
 ``sharded_launches`` from the sharded fit, ``mouse_launches`` from the
 mouse pipeline and, for its four kernels, ``mouse_*`` times at
-N = 1 291 337, and ``launch_contract``, phase 16's records); the last line is
+N = 1 291 337, ``launch_contract``, phase 16's records, and for the atlas's
+five kernels ``lm_atlas_launches`` and ``lm_atlas_max_abs_err``, phase
+17's); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import re
@@ -2532,6 +2573,376 @@ FFT_KERNELS = ("pairwise_sq_dists", "bsp_search", "attractive_ell", "fft_spread"
                "fft_gather")
 
 
+# Phase 17: the LM serving path at full width.  deepseek_7b: 30 layers,
+# d_model 4 096, 32 heads of 128 (MHA), d_ff 11 008, vocab 102 400:
+# 6.91 B parameters stored in float32 (27.6 GB), computed in bf16.
+LM_ARCH = "deepseek_7b"
+LM_DECODE = (2, 64)           # (a) batch x tokens: prefill against decode, float32
+LM_LONG = 1300                # (b), (e) prompt: three chunks of 512, the last ragged
+LM_SLOTS, LM_MAX_SEQ = 8, 512
+LM_REQUESTS, LM_NEW = 16, 64
+LM_PROMPT = (64, 192)         # prompt lengths drawn from [64, 192]
+LM_ALONE_RID = 8              # the first admitted after the first wave: into a slot another left
+LM_PROFILE_AT = 100           # the served tick that opens the profiled window (8 slots busy)
+LM_PROFILED_TICKS = 5
+# bf16 keeps 8 significant bits (a rounding costs up to 2^-8 = 0.4%) and
+# 30 layers compound them: each bf16 prefill path must lie within 5% of
+# the logits' scale of the float32 model, and so must the two paths of
+# each other.  A request served alone must give its pooled run's first
+# logits to two bf16 epsilons of their scale (the slots' rows are computed
+# apart, so any leak would show far above that).
+LM_BF16_REL = 0.05
+LM_ALONE_REL = 2 * 2.0**-7
+# One layer's attention core, chunked against plain on the same bf16 q, k
+# and v: both round their output to bf16 once (half an ulp each, and one
+# ulp where the float32 values straddle a rounding), so each row of
+# dh = 128 values must agree to two bf16 epsilons of the row's largest.
+# The controls (causal mask dropped, the diagonal dropped, the padding of
+# the ragged last chunk not masked) must each exceed that limit.
+LM_ATTN_REL = 2 * 2.0**-7
+
+
+@contextlib.contextmanager
+def plain_attention_core():
+    """Prefill through the plain attention core (``layers.attention``, the
+    whole [S, S] score matrix) in place of ``chunked_attention``."""
+    from repro_torch.models import attention, layers
+    chunked = attention.chunked_attention
+    attention.chunked_attention = lambda q, k, v, *, causal, chunk: layers.attention(
+        q, k, v, causal=causal)
+    try:
+        yield
+    finally:
+        attention.chunked_attention = chunked
+
+
+def capture_first_logits(eng, rid: int) -> dict:
+    """Wrap ``eng``'s step function so that the returned dict gets request
+    ``rid``'s logits (float32, on the card) from the tick that consumes its
+    last prompt token: the logits of its first generated token."""
+    step, got = eng._step, {}
+
+    def spy(params, cache, tok, pos):
+        logits, cache = step(params, cache, tok, pos)
+        for s, req in enumerate(eng.active):
+            if req is not None and req.rid == rid and pos[s] == len(req.prompt) - 1:
+                got["logits"] = logits[s].float().clone()
+        return logits, cache
+
+    eng._step = spy
+    return got
+
+
+def lm_tick_bounds(n_params: int, cfg) -> dict:
+    """The least time of one decode tick at LM_SLOTS x LM_MAX_SEQ on this
+    card, by bytes (ms): the parameters as the reference computes them
+    (read in float32, written and read again in bf16: 8 B each), as a
+    held bf16 copy would (2 B each), and the whole cache read (k and v of
+    every layer over every slot's capacity, bf16)."""
+    cache = 2 * cfg.n_layers * LM_SLOTS * LM_MAX_SEQ * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    return dict(cast_ms=8 * n_params / PEAK_HBM_BYTES * 1e3,
+                bf16_copy_ms=2 * n_params / PEAK_HBM_BYTES * 1e3,
+                cache_ms=cache / PEAK_HBM_BYTES * 1e3,
+                tick_bound_ms=(8 * n_params + cache) / PEAK_HBM_BYTES * 1e3)
+
+
+def row_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest max |a - b| of a row of the last axis over that row's
+    max |b| (attention outputs [B, S, H, dh]: a row is one query's head)."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+
+
+def check_lm_attention(q, k, v, chunk: int) -> dict:
+    """Phase 17 (e)'s check: ``chunked_attention`` against the plain core
+    ``attention`` on the same q, k, v (bf16, S not a multiple of ``chunk``),
+    causal and not, within LM_ATTN_REL of each row's scale; and three
+    planted faults that the limit must catch.  Returns the errors."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    s = q.shape[1]
+    pos = torch.arange(s, device=q.device)
+    plain = {c: layers.attention(q, k, v, causal=c) for c in (True, False)}
+    errs = {f"causal={c}": row_rel_err(layers.chunked_attention(q, k, v, causal=c, chunk=chunk),
+                                       plain[c]) for c in (True, False)}
+    padded = [F.pad(t, (0, 0, 0, 0, 0, (-s) % chunk)) for t in (k, v)]
+    controls = {
+        "causal mask dropped": row_rel_err(
+            layers.chunked_attention(q, k, v, causal=False, chunk=chunk), plain[True]),
+        "diagonal dropped": row_rel_err(
+            layers.attention(q, k, v, causal=False, mask=pos[None, :] < pos[:, None]),
+            plain[True]),
+        "ragged padding unmasked": row_rel_err(
+            layers.chunked_attention(q, *padded, causal=False, chunk=chunk), plain[False]),
+    }
+    log(f"lm (e) chunked_attention against the plain core at S = {s}, bf16: max |d| over "
+        f"each row's max {json.dumps(errs)} (limit {LM_ATTN_REL}); planted faults "
+        f"{json.dumps(controls)} (each must exceed it)")
+    if max(errs.values()) > LM_ATTN_REL:
+        fail(f"lm (e): chunked_attention disagrees with the plain core: {errs}")
+    if min(controls.values()) <= LM_ATTN_REL:
+        fail(f"lm (e): the limit does not catch every planted fault: {controls}")
+    return dict(errs, **{f"control: {n}": e for n, e in controls.items()})
+
+
+def atlas_kernel_checks(run) -> dict:
+    """Phase 17 (d)'s check: each kernel the LM atlas launched, against
+    its plain twin on the atlas's own inputs, at phase 3's tolerances:
+    pairwise on the fit's tile (x_fit against itself) and on the
+    admissions' queries (one, and all held-out rows) against x_fit; bsp on
+    the fit's KNN distances and on the admissions' query distances at the
+    service's perplexity; Morton, attractive and the walk (bit for bit, by
+    check_traverse) at the fitted embedding and graph.  Returns each
+    kernel's largest error."""
+    from repro_torch.core import attractive, bsp, knn, morton
+    from repro_torch.kernels import ops
+    est, dev = run.est, torch.device("cuda")
+    # float32, as the estimator and the service cast them
+    x_fit = torch.as_tensor(run.x_fit, dtype=torch.float32, device=dev)
+    x_new = torch.as_tensor(run.x_new, dtype=torch.float32, device=dev)
+    errs = dict(pairwise_sq_dists=max(
+        check_pairwise("LM atlas, the fit's tile", x_fit, x_fit),
+        check_pairwise("LM atlas, an admission's query", x_new[:1], x_fit),
+        check_pairwise("LM atlas, every held-out query", x_new, x_fit)))
+    k, perp = int(est.n_neighbors_), float(est.perplexity)
+    _, d2 = knn.knn(x_fit, k, KNN_BLOCK_Q, KNN_BLOCK_DB)
+    kq = int(est.query_k_)
+    _, dq = est.query_index_.query(x_new, kq)
+    eff = min(perp, max(1.0, 0.5 * kq))            # embed.transform.prepare_batch's
+    errs["bsp_search"] = 0.0
+    for what, dd, pp in ((f"LM atlas, the fit's [{d2.shape[0]}, {k}]", d2, perp),
+                         (f"LM atlas, an admission's [1, {kq}]", dq[:1], eff),
+                         (f"LM atlas, the admissions' [{dq.shape[0]}, {kq}]", dq, eff)):
+        p_k, b_k = ops.bsp_search(dd, pp)
+        p_p, b_p = bsp.binary_search_perplexity_plain(dd, pp)
+        check_bsp(what, p_k, b_k, p_p, b_p)
+        errs["bsp_search"] = max(errs["bsp_search"], float((p_k - p_p).abs().max()))
+    y = torch.as_tensor(est.embedding_, device=dev)
+    cent, r_span = morton.span_radius(y)
+    if not torch.equal(ops.morton_encode(y, cent, r_span), morton.morton_encode(y, cent, r_span)):
+        fail("morton_encode is not bit-identical to its plain version at the LM atlas")
+    errs["morton_encode"] = 0.0
+    g = est.neighbor_graph_
+    cols, vals, p_len = (t.to(dev) for t in (g.p_cols, g.p_vals, g.p_len))
+    f_k, kl_k = ops.attractive_ell(y, cols, vals, p_len)
+    f_p, kl_p = attractive.attractive_forces_ell(y, cols, vals, p_len)
+    if not (torch.allclose(f_k, f_p, rtol=1e-4, atol=1e-5 * float(f_p.abs().max()))
+            and abs(float(kl_k) - float(kl_p)) <= 1e-5 * abs(float(kl_p))):
+        fail("attractive_ell disagrees with its plain version at the LM atlas's graph")
+    errs["attractive_ell"] = float((f_k - f_p).abs().max())
+    check_traverse("LM atlas, the fitted embedding", y)
+    errs["bh_traverse"] = 0.0
+    log(f"lm (d) the atlas's kernels against their plain twins on its inputs (x_fit "
+        f"{list(x_fit.shape)}, W {cols.shape[1]}, nnz {int(p_len.sum())}): max_abs_err "
+        + json.dumps(errs) + " (Morton and the walk bit for bit)")
+    return errs
+
+
+def phase_lm(smi: str) -> dict:
+    """Phase 17: the LM serving path; see the module docstring.  Returns
+    its summary, the atlas's launch counts among them."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.examples import lm_embedding_atlas
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    m16 = build_model(cfg)
+    m32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    dev = m16.device
+    params, init_s = synced_seconds(lambda: m16.init(torch.Generator(dev).manual_seed(0)))
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != param_count(cfg)[0] + (2 * cfg.n_layers + 1) * cfg.d_model:
+        fail(f"lm: {n_params} parameters, param_count says {param_count(cfg)[0]} + norms")
+    out = dict(arch=LM_ARCH, n_params=n_params, init_s=init_s,
+               bounds=lm_tick_bounds(n_params, cfg))
+    log(f"lm (phase 17): {LM_ARCH} at full width, {n_params} parameters "
+        f"({n_params * 4 / 2**30:.2f} GiB in float32) initialised in {init_s:.2f} s; {smi}")
+    gen = torch.Generator(dev).manual_seed(1)
+    vocab = cfg.vocab_size
+
+    # (a) decode against prefill in float32
+    b, s = LM_DECODE
+    tokens = torch.randint(0, vocab, (b, s), generator=gen, device=dev)
+    want = m32.prefill(params, {"tokens": tokens})
+    cache = m32.init_cache(b, s)
+    t0 = time.perf_counter()
+    for t in range(s):
+        logits, cache = m32.decode_step(params, cache, tokens[:, t],
+                                        torch.full((b,), t, device=dev))
+    torch.cuda.synchronize()
+    out["f32_decode_ms"] = (time.perf_counter() - t0) / s * 1e3
+    err = float((logits - want).abs().max())
+    same = torch.equal(logits.argmax(-1), want.argmax(-1))
+    log(f"lm (a) float32, {b} x {s} tokens: decode's last logits against prefill's max "
+        f"|d| {err:.3e} (scale {float(want.abs().max()):.3f}; rtol 1e-3, atol 1e-4), "
+        f"argmax equal {same}, {out['f32_decode_ms']:.2f} ms a float32 decode step")
+    if not torch.allclose(logits, want, rtol=1e-3, atol=1e-4) or not same:
+        fail("lm (a): float32 decode does not reproduce prefill's last logits")
+    out["f32_decode_vs_prefill"] = err
+    del cache, logits, want
+
+    # (b) chunked against plain attention, bf16, against the float32 model
+    long = torch.randint(0, vocab, (1, LM_LONG), generator=gen, device=dev)
+    chunked = m16.prefill(params, {"tokens": long}).float()
+    with plain_attention_core():
+        plain = m16.prefill(params, {"tokens": long}).float()
+    ref = m32.prefill(params, {"tokens": long})
+    scale = float(ref.abs().max())
+    errs = dict(chunked_plain=float((chunked - plain).abs().max()),
+                chunked_f32=float((chunked - ref).abs().max()),
+                plain_f32=float((plain - ref).abs().max()))
+    out["prefill_ms"] = cuda_ms(lambda: m16.prefill(params, {"tokens": long}), reps=3, inner=1)
+    log(f"lm (b) bf16 prefill of {LM_LONG} tokens: max |d| " + json.dumps(errs)
+        + f" against {LM_BF16_REL} x scale {scale:.3f}; argmax chunked == plain "
+        f"{bool(chunked.argmax() == plain.argmax())}; prefill {out['prefill_ms']:.3f} ms")
+    if max(errs.values()) > LM_BF16_REL * scale:
+        fail(f"lm (b): chunked and plain attention disagree beyond bf16's reach: {errs}")
+    out["prefill_errs"] = errs
+    del chunked, plain, ref
+
+    # (c) serving in bf16: 16 requests through 8 slots
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
+               for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
+    eng = ServeEngine(m16, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, params=params)
+    pooled_first = capture_first_logits(eng, LM_ALONE_RID)
+    for r, prompt in enumerate(prompts):
+        eng.submit(Request(rid=r, prompt=prompt, max_new_tokens=LM_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ticks, window = [], []      # wall seconds of each tick: served, and profiled
+    while eng.queue or any(a is not None for a in eng.active):
+        if len(ticks) == LM_PROFILE_AT and not window:
+            # the host's share of a tick: the kernel time of a window of
+            # this run's own ticks against the median of its other ticks
+            def profiled():
+                for _ in range(LM_PROFILED_TICKS):
+                    t0 = time.perf_counter()
+                    eng.step()
+                    window.append(time.perf_counter() - t0)
+            events = kernel_events(profiled)
+            continue
+        t0 = time.perf_counter()
+        eng.step()          # ends in the argmax's read-back: the tick is done
+        ticks.append(time.perf_counter() - t0)
+    if len(window) != LM_PROFILED_TICKS:
+        fail(f"lm (c): the serving run ended before its profiled window ({len(ticks)} ticks)")
+    serve_s = sum(ticks) + sum(window)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    done = sorted(eng.completed, key=lambda r: r.rid)
+    if len(done) != LM_REQUESTS or any(
+            len(r.generated) != LM_NEW or not all(0 <= t < vocab for t in r.generated)
+            for r in done):
+        fail(f"lm (c): {len(done)} of {LM_REQUESTS} requests completed, not all with "
+             f"{LM_NEW} tokens inside the vocabulary")
+    generated = sum(len(r.generated) for r in done)
+    by_kernel = {k: sum(v) for k, v in events.items()}
+    busy_s = sum(by_kernel.values()) * 1e-6
+    # the same request alone: its first generated token's logits
+    alone = ServeEngine(m16, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, params=params)
+    alone_first = capture_first_logits(alone, LM_ALONE_RID)
+    alone.submit(Request(rid=LM_ALONE_RID, prompt=prompts[LM_ALONE_RID], max_new_tokens=1))
+    alone.run()
+    a, p = alone_first["logits"], pooled_first["logits"]
+    alone_err = float((a - p).abs().max())
+    tick_ms = float(np.median(ticks)) * 1e3
+    n_ticks = len(ticks) + len(window)
+    out.update(
+        requests=LM_REQUESTS, ticks=n_ticks, generated=generated,
+        prompt_tokens=sum(map(len, prompts)), serve_s=serve_s, tick_ms_median=tick_ms,
+        tick_ms_p10_p90=[float(np.percentile(ticks, q)) * 1e3 for q in (10, 90)],
+        profiled_tick_ms_median=float(np.median(window)) * 1e3,
+        generated_tokens_per_s=generated / serve_s,
+        all_tokens_per_s=(generated + sum(map(len, prompts))) / serve_s,
+        device_busy_ms_a_tick=busy_s / LM_PROFILED_TICKS * 1e3 if busy_s > 0 else None,
+        kernels_a_tick=sum(map(len, events.values())) / LM_PROFILED_TICKS,
+        host_share=1 - busy_s / LM_PROFILED_TICKS / (tick_ms * 1e-3) if busy_s > 0 else None,
+        peak_gib=peak, alone_vs_pooled=alone_err,
+        alone_first_token_equal=alone.completed[0].generated[0] == done[LM_ALONE_RID].generated[0],
+        serve_stats=eng.stats())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    log(f"lm (c) tick device time by kernel (ms, over served ticks {LM_PROFILE_AT}-"
+        f"{LM_PROFILE_AT + LM_PROFILED_TICKS - 1}, profiled: median "
+        f"{out['profiled_tick_ms_median']:.3f} ms a tick; "
+        f"{out['kernels_a_tick']:.1f} kernel launches a tick): "
+        + json.dumps({k[:70]: v * 1e-3 for k, v in top}))
+    log(f"lm (c) serving, {LM_SLOTS} slots x {LM_MAX_SEQ}: {generated} tokens generated "
+        f"({out['prompt_tokens']} prompt tokens fed by decode) in {n_ticks} ticks, "
+        f"{serve_s:.3f} s")
+    log(f"lm (c) decode tick: median {tick_ms:.3f} ms (p10 / p90 "
+        f"{out['tick_ms_p10_p90'][0]:.3f} / {out['tick_ms_p10_p90'][1]:.3f}; the "
+        f"{len(ticks)} ticks outside the profiled window); bound "
+        f"{out['bounds']['tick_bound_ms']:.3f} ms (bytes) = cast {out['bounds']['cast_ms']:.3f} "
+        f"+ cache {out['bounds']['cache_ms']:.3f}; with a held bf16 copy "
+        f"{out['bounds']['bf16_copy_ms']:.3f} + cache")
+    log(f"lm (c) generated tokens/s {out['generated_tokens_per_s']:.2f}, all tokens/s "
+        f"{out['all_tokens_per_s']:.2f}; host share of a tick "
+        + ("not measured (the profiler recorded no kernel)" if busy_s <= 0 else
+           f"{out['host_share']:.4f} (device {out['device_busy_ms_a_tick']:.3f} ms a tick)")
+        + f"; peak device memory {peak:.2f} GiB; {smi}")
+    log(f"lm (c) request {LM_ALONE_RID} alone against pooled: first logits max |d| "
+        f"{alone_err:.3e} (limit {LM_ALONE_REL} x {float(p.abs().max()):.3f}), first token "
+        f"equal {out['alone_first_token_equal']}")
+    log("lm (c) serve.* snapshot: " + json.dumps(out["serve_stats"]))
+    if alone_err > LM_ALONE_REL * float(p.abs().max()):
+        fail(f"lm (c): request {LM_ALONE_RID} alone and pooled disagree: {alone_err:.3e}")
+    snap = out["serve_stats"]
+    if (snap["serve.completed"], snap["serve.tokens"], snap["serve.ticks"]) != \
+            (LM_REQUESTS, generated, n_ticks):
+        fail(f"lm (c): the serve.* counters disagree with the run: {snap}")
+    del eng, alone, params          # the spies close over their engines: collect the cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the LM atlas at its defaults: the reduced model's states through the t-SNE kernels
+    BUILD.mkdir(exist_ok=True)
+    ops.reset_launch_counts()
+    run, atlas_s = synced_seconds(
+        lambda: lm_embedding_atlas.main(["--out", str(BUILD / "lm_atlas.npy")]))
+    launches = dict(ops.LAUNCHES)
+    out.update(atlas_launches=launches, atlas_s=atlas_s, atlas_fit_s=run.fit_s,
+               atlas=dict(kl=run.kl, intra=run.intra, inter=run.inter,
+                          intra_grown=run.intra_new, inter_grown=run.inter_new,
+                          p50_s=run.service["latency_s_p50"]))
+    log(f"lm (d) atlas: {atlas_s:.3f} s (fit {run.fit_s:.3f} s); " + json.dumps(out["atlas"])
+        + f"; launches {json.dumps(launches)}")
+    if run.service["completed"] != run.n_grow or not np.isfinite(run.kl) \
+            or not np.isfinite(run.y).all():
+        fail("lm (d): the atlas's growth did not complete or its KL is not finite")
+    missing = [k for k in BH_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"lm (d): the atlas never launched {missing}")
+    out["atlas_max_abs_err"] = atlas_kernel_checks(run)
+    del run
+
+    # (e) the library yardstick: SDPA beside the port's chunked core (not on the path)
+    q, k, v = (torch.randn(1, LM_LONG, cfg.n_heads, cfg.resolved_head_dim, generator=gen,
+                           device=dev, dtype=torch.bfloat16) for _ in range(3))
+    out["attention_errs"] = check_lm_attention(q, k, v, cfg.attn_chunk)
+    port = layers.chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    lib = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)),
+                                         is_causal=True).transpose(1, 2)
+    out["attention_ms"] = cuda_ms(
+        lambda: layers.chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk))
+    out["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in (q, k, v)), is_causal=True))
+    log(f"lm (e) one layer's attention core at B = 1, S = {LM_LONG}, H = {cfg.n_heads}, "
+        f"dh = {cfg.resolved_head_dim}, bf16: chunked_attention {out['attention_ms']:.4f} ms, "
+        f"SDPA (is_causal) {out['sdpa_ms']:.4f} ms (max |d| "
+        f"{float((port.float() - lib.float()).abs().max()):.3e}); {smi}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("lm (phase 17): " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-iter", type=int, default=1000,
@@ -2545,13 +2956,24 @@ def main() -> None:
     ap.add_argument("--mouse-only", action="store_true",
                     help="phases 1, 2, 14 and 15 (at the mouse embedding alone), for "
                          "iterating on the million-point pipeline; no kernels line")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="phases 1, 2 and 17 (the LM serving path at full width and the "
+                         "LM atlas), for iterating on it; no kernels line")
     args = ap.parse_args()
 
+    t_run = time.perf_counter()
     smi = phase_device()
     from repro_torch.data.datasets import make_dataset
     from repro_torch.kernels import ops
     build_logs = phase_build()
 
+    if args.lm_only:
+        phase_lm(smi)
+        log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if args.mouse_only:
         _, _, _, mouse_run = phase_mouse()
         phase_naive("mouse_1p3m, the fit's final embedding",
@@ -2574,6 +2996,8 @@ def main() -> None:
     # phase 16 first: late in a long run, torch.profiler on the card's
     # machine has recorded no kernel event at all (phase 14's device times)
     contracts = phase_contracts(smi, build_logs)
+    # phase 17 next, while the card is empty: its model holds 27.6 GB
+    lm = phase_lm(smi)
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
 
@@ -2619,6 +3043,10 @@ def main() -> None:
         r["mouse_launches"] = mouse_launches[r["name"]]
         r.update(mouse_extra.get(r["name"], {}))
         r["launch_contract"] = contracts[r["name"]]
+        if r["name"] in BH_KERNELS:
+            r["lm_atlas_launches"] = lm["atlas_launches"][r["name"]]
+            r["lm_atlas_max_abs_err"] = lm["atlas_max_abs_err"][r["name"]]
+    log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,14 +75,16 @@ RENAMED = {
     "neighbors/rp_forest.py::_leaf_topk": "neighbors/rp_forest.py::leaf_topk",
 }
 # per-step paths: the sharded gradient and update the reference compiles
-# through shard_map, the descent loop that queues every step of a fit, and
-# the service's tick (one transform_step for every lane)
+# through shard_map, the descent loop that queues every step of a fit, the
+# service's tick (one transform_step for every lane) and the LM engine's
+# tick (one decode_step for every slot)
 STEP_PATHS = frozenset(f"{PORT}/{p}" for p in (
     "core/tsne.py::descend",
     "core/distributed.py::local_bh_gradient",
     "core/distributed.py::distributed_bh_gradient",
     "core/distributed.py::gd_update_sharded",
     "embed/service.py::EmbeddingService.step",
+    "serve/engine.py::ServeEngine.step",
 ))
 HOT_PATHS = JIT_COUNTERPARTS | STEP_PATHS
 

@@ -3,10 +3,16 @@
 t-SNE has no weights.  What one package's run hands the other is the
 fitted sparse input-similarity graph, the descent state (whole, or split
 over a device mesh by :func:`shard_state`) and a fitted random-projection
-forest; they cross as numpy arrays (never framework objects), so this
-module needs nothing of the JAX package.
+forest.  The LM substrate does have weights: :func:`lm_params_from_numpy`
+carries a dense decoder's parameter tree across and
+:func:`kv_cache_from_numpy` its stacked KV cache.  Everything crosses as
+numpy arrays (never framework objects), so this module needs nothing of
+the JAX package.  The LM functions import the LM package when called: the
+t-SNE half does not load it.
 """
 from __future__ import annotations
+
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -15,6 +21,10 @@ from repro_torch.core.similarity import ell_row_lengths
 from repro_torch.core.tsne import NeighborGraph, TsneState
 from repro_torch.device import resolve_device
 from repro_torch.neighbors.rp_forest import RPForestIndex
+
+if TYPE_CHECKING:
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models.model import DenseLM
 
 
 def graph_from_numpy(p_cols, p_vals, p_logp, n: int | None = None, *,
@@ -76,3 +86,42 @@ def forest_index_from_numpy(x_ref, leaves, dirs, thrs, *, device=None) -> RPFore
         leaves=torch.tensor(np.asarray(leaves, np.int64), device=dev),
         dirs=torch.tensor(np.asarray(dirs, np.float32), device=dev),
         thrs=tuple(torch.tensor(np.asarray(t, np.float32), device=dev) for t in thrs))
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array on ``device`` with its dtype; bfloat16 arrays (JAX's
+    ``ml_dtypes`` type, which torch cannot read) cross through their bits."""
+    a = np.array(a)                                # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> DenseLM:
+    """A dense decoder's parameters (:class:`~repro_torch.models.model.DenseLM`)
+    from the reference's parameter tree as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), cast to ``cfg.param_dtype``.
+
+    Weights keep the reference's ``[in, out]`` layout (the port computes
+    ``x @ w``, as the reference does), so nothing is transposed.
+    ``layers`` may be the scanned layout (a dict whose leaves are stacked
+    ``[L, ...]``, ``scan_layers=True``) or a list of block dicts."""
+    from repro_torch.models.model import DenseLM, tree_map
+    dev = resolve_device(device)
+    layers = tree["layers"]
+    if isinstance(layers, dict):
+        layers = [tree_map(lambda a, i=i: np.asarray(a)[i], layers)
+                  for i in range(cfg.n_layers)]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers in the tree, {cfg.n_layers} in {cfg.name}")
+    pd = cfg.pdtype()
+    return DenseLM(cfg, tree_map(lambda a: _tensor(a, dev).to(pd),
+                                 {**tree, "layers": list(layers)}))
+
+
+def kv_cache_from_numpy(cache, *, device=None) -> dict:
+    """The stacked KV cache ``{k, v}`` ([L, B, S, Hkv, dh] each, the
+    reference's ``init_cache``/``decode_step`` layout) on ``device``, in
+    its own dtype."""
+    dev = resolve_device(device)
+    return {name: _tensor(cache[name], dev) for name in ("k", "v")}

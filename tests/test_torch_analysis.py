@@ -131,7 +131,7 @@ class TestHotPaths:
         assert hostsync.HOT_PATHS == hostsync.JIT_COUNTERPARTS | hostsync.STEP_PATHS
         assert {p.partition("::")[2] for p in hostsync.STEP_PATHS} == {
             "descend", "local_bh_gradient", "distributed_bh_gradient",
-            "gd_update_sharded", "EmbeddingService.step"}
+            "gd_update_sharded", "EmbeddingService.step", "ServeEngine.step"}
 
     def test_every_hot_path_names_a_port_function(self):
         for entry in sorted(hostsync.HOT_PATHS):
@@ -252,8 +252,8 @@ class TestLaunchContracts:
     def cases(self):
         sys.path.insert(0, str(FIXTURES))
         try:
-            import kernel_fixture_mod
-            return kernel_fixture_mod, {c[0]: c[1:] for c in kernel_fixture_mod.kernel_cases()}
+            import torch_kernel_fixture_mod as mod
+            return mod, {c[0]: c[1:] for c in mod.kernel_cases()}
         finally:
             sys.path.remove(str(FIXTURES))
 
@@ -336,7 +336,7 @@ class TestGateWorkflow:
     @pytest.mark.parametrize("args", [
         [str(FIXTURES / "hostsync_bad.py"), "--passes", "hostsync"],
         [str(REF_FIXTURES / "concurrency_bad.py"), "--passes", "concurrency"],
-        ["--passes", "kernels", "--kernels-from", "kernel_fixture_mod", str(FIXTURES)],
+        ["--passes", "kernels", "--kernels-from", "torch_kernel_fixture_mod", str(FIXTURES)],
     ], ids=["hostsync", "concurrency", "kernels"])
     def test_gate_cli_nonzero_per_fixture_class(self, args, tmp_path, capsys, monkeypatch):
         monkeypatch.syspath_prepend(str(FIXTURES))
