@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sharded-only   # phases 1, 2, 5 and 13 (for several cards)
     python3 chip_smoke.py --mouse-only     # phases 1, 2, 14 and 15 (the mouse embedding only)
     python3 chip_smoke.py --lm-only        # phases 1, 2 and 17 (the LM serving path only)
+    python3 chip_smoke.py --train-only     # phases 1, 2 and 18 (the LM training path only)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -244,6 +245,43 @@ result line):
                diagonal dropped, ragged padding unmasked) each beyond it;
                F.scaled_dot_product_attention(is_causal=True) timed beside
                chunked_attention: the library yardstick, used nowhere.
+18. train    -- (right after phase 17, its model freed) the LM training
+               path.  (a) one layer's attention at the training shape (B
+               1, S 4 096, 24 query heads over 8 KV heads of 128, causal,
+               chunk 512), float32 and bf16: chunked_attention's custom
+               backward (dq, dk, dv) against float64 autograd through a
+               plain core, each within TRAIN_ATTN_REL of the gradient's
+               scale; three planted faults (delta dropped: the backward
+               given a zero forward output; the GQA group sum dropped: the
+               backward over K and V repeated to 24 heads, the group's
+               first head kept; the scale missing from ds: dq and dk times
+               sqrt(dh)) each beyond it; forward + backward timed beside
+               SDPA's (the library yardstick, used nowhere).  (b)
+               phi4_mini_3p8b at full width (32 layers, d_model 3 072,
+               24 / 8 heads of 128, d_ff 8 192, vocab 200 064, tied;
+               3.84 B parameters in float32), random weights from seed 0,
+               with the reference's own options bf16 moments, a factored
+               second moment and 4 microbatches; TokenPipeline(vocab, 4,
+               4 096, seed 0) through Trainer.run for 6 steps with one
+               checkpoint (at step 6, into a temporary directory removed
+               afterwards).  Cuts: train_4k's global batch 256 -> 4 and
+               6 steps; widths, depth and sequence not cut.  Prints each
+               step's loss and ms, tokens/s, each optimizer update's ms
+               (CUDA events around adamw_update), peak GiB, the
+               checkpoint's GB and seconds; the losses must be finite, the
+               first equal to loss_fn apart on the initial parameters and
+               step 0's microbatches bit for bit, and within LM_BF16_REL of
+               the float32-compute model's; then one microbatch's forward
+               and backward at the trained parameters, its wall and its
+               kernel time by name (torch.profiler).  (c) the restart drill at
+               examples/train_lm.py's default model (12 x 768, vocab
+               32 768, float32), batch 8 x 256: 8 steps, a checkpoint every
+               2, a failure at step 5 resumed by run_with_restarts; the
+               parameters and optimizer state equal an uninterrupted run's
+               bit for bit.  (d) python -m repro_torch.launch.train --arch
+               phi4_mini_3p8b --reduced --steps 4 and python -m
+               repro_torch.examples.train_lm --steps 20 on the card, from a
+               scratch directory: exit 0 and a finite last loss.
 
 Every kernel must be launched by at least one of the two fits.  Each
 driven path (the two fits, the service, the sharded fit, the mouse
@@ -279,12 +317,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # H100 SXM data-sheet peaks (dense): fp32 outside the tensor cores, TF32
-# on the tensor cores, HBM3; and the special-function units (MUFU: exp2,
+# on the tensor cores, HBM3, bf16 on the tensor cores; and the special-function units (MUFU: exp2,
 # log2, reciprocal), 16 results a clock on each of 132 SMs at 1.98 GHz.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_SFU_OPS = 132 * 16 * 1.98e9
+PEAK_BF16_FLOPS = 989e12
 
 ROOT = Path(__file__).resolve().parent
 BUILD = ROOT / "build"
@@ -2943,6 +2982,333 @@ def phase_lm(smi: str) -> dict:
     return out
 
 
+# Phase 18: the LM training path at full width.  phi4_mini_3p8b: 32
+# layers, d_model 3 072, 24 query heads over 8 KV heads of 128, d_ff 8 192,
+# vocab 200 064, tied embeddings: 3 835 822 080 parameters in float32, with
+# the reference's own memory options (bf16 moments, the factored second
+# moment, 4 microbatches).  Cuts: train_4k's global batch 256 -> 4 and
+# 6 steps; widths, depth and the 4 096-token sequence are not cut.
+TRAIN_ARCH = "phi4_mini_3p8b"
+TRAIN_OPTIONS = dict(optimizer_dtype="bfloat16", optimizer_factored=True, grad_accum=4)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 6
+# (a) one layer's attention at the training shape
+TRAIN_ATTN = dict(b=1, s=4096, h=24, hkv=8, dh=128, chunk=512)
+# Each gradient of the custom backward against float64 autograd through
+# the plain core, relative to the gradient's scale: float32 sums 4 096
+# terms a row in other orders (1e-4 leaves a wide margin over its ~1e-6);
+# bf16 rounds each gradient once (dk, dv per chunk) and its delta reads
+# the bf16 forward output: two bf16 epsilons.  Each planted fault must
+# exceed the limit on at least one gradient.
+TRAIN_ATTN_REL = {"float32": 1e-4, "bfloat16": 2 * 2.0**-7}
+# (c) the restart drill at examples/train_lm.py's defaults
+DRILL_BATCH, DRILL_SEQ, DRILL_STEPS, DRILL_CKPT, DRILL_FAIL = 8, 256, 8, 2, 5
+
+
+def attention64(q, k, v):
+    """Plain causal softmax attention in float64 (GQA by repeating K and V),
+    the reference the custom backward is held against."""
+    from repro_torch.models.layers import _repeat_kv
+    n_rep = q.shape[2] // k.shape[2]
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    s = q.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    probs = torch.softmax(logits.masked_fill(~mask, -torch.inf), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def grad_rel_errs(got, want) -> dict:
+    """max |got - want| over max |want|, for each of dq, dk, dv."""
+    return {n: float((g.double() - w).abs().max() / w.abs().max())
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def check_train_attention(dtype: torch.dtype, gen) -> dict:
+    """Phase 18 (a) in one dtype: the port's dq, dk, dv at the training
+    shape against float64 autograd, three planted faults, and the forward
+    + backward timed beside SDPA's (on K and V repeated to the query
+    heads: the same GQA arithmetic)."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    a = TRAIN_ATTN
+    dev, name = torch.device("cuda"), str(dtype).split(".")[1]
+    q = torch.randn(a["b"], a["s"], a["h"], a["dh"], generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(a["b"], a["s"], a["hkv"], a["dh"], generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = layers.chunked_attention(*leaves, causal=True, chunk=a["chunk"])
+    got = torch.autograd.grad(out, leaves, dout)
+    ref_in = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention64(*ref_in), ref_in, dout.double())
+    del ref_in
+    errs = grad_rel_errs(got, want)
+    out_d, lse = layers._fa_forward(q, k, v, True, a["chunk"])
+    n_rep = a["h"] // a["hkv"]
+    rep = [layers._repeat_kv(t, n_rep) for t in (k, v)]
+    _, dk_h, dv_h = layers._fa_backward(q, *rep, out_d, lse, dout, True, a["chunk"])
+    faults = {
+        "delta dropped": grad_rel_errs(layers._fa_backward(
+            q, k, v, torch.zeros_like(out_d), lse, dout, True, a["chunk"]), want),
+        "GQA group sum dropped": grad_rel_errs(
+            (got[0], dk_h[:, :, ::n_rep], dv_h[:, :, ::n_rep]), want),
+        "scale missing": grad_rel_errs(
+            (got[0].double() * a["dh"] ** 0.5, got[1].double() * a["dh"] ** 0.5, got[2]), want),
+    }
+    del want, dk_h, dv_h, rep
+    limit = TRAIN_ATTN_REL[name]
+    log(f"train (a) {name}: custom backward against float64 autograd, each gradient's "
+        f"max |d| over its max: {json.dumps(errs)} (limit {limit}); planted faults "
+        + json.dumps({f: max(e.values()) for f, e in faults.items()}) + " (each must exceed it)")
+    if max(errs.values()) > limit:
+        fail(f"train (a): the {name} attention backward disagrees with float64 autograd: {errs}")
+    caught = {f: max(e.values()) > limit for f, e in faults.items()}
+    if not all(caught.values()):
+        fail(f"train (a): the {name} limit misses a planted fault: {faults}")
+
+    def port():
+        o = layers.chunked_attention(*leaves, causal=True, chunk=a["chunk"])
+        torch.autograd.grad(o, leaves, dout)
+
+    sdpa_in = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa():
+        kr, vr = (layers._repeat_kv(t, n_rep) for t in sdpa_in[1:])
+        o = F.scaled_dot_product_attention(sdpa_in[0].transpose(1, 2), kr.transpose(1, 2),
+                                           vr.transpose(1, 2), is_causal=True)
+        torch.autograd.grad(o, sdpa_in, dout.transpose(1, 2))
+
+    ms, sdpa_ms = cuda_ms(port, reps=3, inner=1), cuda_ms(sdpa, reps=3, inner=1)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: layers.chunked_attention(q, k, v, causal=True,
+                                                          chunk=a["chunk"]), reps=3, inner=1)
+    # least work: a causal forward (2 products) and backward (5, the scores
+    # recomputed) over the S^2/2 pairs; the port computes every chunk of
+    # the square (masked or not)
+    pairs = a["b"] * a["h"] * a["s"] * a["s"]
+    flops = 7 * 2 * pairs * a["dh"] / 2
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    bound_ms = bound(flops, nbytes, peak)[0]
+    log(f"train (a) {name} forward + backward at B 1, S {a['s']}, H {a['h']} / {a['hkv']}, "
+        f"dh {a['dh']}: chunked_attention {ms:.3f} ms (its forward alone {fwd_ms:.3f}), SDPA "
+        f"{sdpa_ms:.3f} ms (the library yardstick, not on the path); bound {bound_ms:.3f} ms "
+        f"({flops / 1e12:.3f} TFLOP causal at {peak / 1e12:.0f} TFLOP/s)")
+    return dict(errs=errs, faults=faults, ms=ms, fwd_ms=fwd_ms, sdpa_ms=sdpa_ms,
+                bound_ms=bound_ms)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def phase_train(smi: str) -> dict:
+    """Phase 18: the LM training path; see the module docstring."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.fault import run_with_restarts
+    from repro_torch.examples.train_lm import lm100m_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2)
+    out = {"attention": {n: check_train_attention(dt, gen)
+                         for n, dt in (("float32", torch.float32),
+                                       ("bfloat16", torch.bfloat16))}}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) phi4_mini_3p8b at full width through Trainer.run
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_OPTIONS)
+    model = build_model(cfg)
+    m32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    pipe = TokenPipeline(cfg.vocab_size, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        trainer = Trainer(model, pipe, TrainerConfig(
+            n_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS, ckpt_dir=str(ckpt_dir), log_every=1))
+        first, opt_events, saves = {}, [], []
+        init_state, update, save = trainer.init_state, step_mod.adamw_update, trainer.ckpt.save
+
+        def init_and_loss_apart(seed):
+            """The run's initial state, and loss_fn apart on it at step 0's
+            microbatches (bf16, and the float32-compute model)."""
+            state, first["init_s"] = synced_seconds(lambda: init_state(seed))
+            tokens = torch.as_tensor(pipe.batch(0)["tokens"], device=dev)
+            micro = tokens.reshape(cfg.grad_accum, TRAIN_BATCH // cfg.grad_accum, -1)
+            with torch.no_grad():
+                first["bf16"] = torch.mean(torch.stack(
+                    [model.loss_fn(state[0], {"tokens": mb})[0] for mb in micro]))
+                first["f32"] = torch.mean(torch.stack(
+                    [m32.loss_fn(state[0], {"tokens": mb})[0] for mb in micro]))
+            return state
+
+        def timed_update(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = update(*args, **kw)
+            ev[1].record()
+            opt_events.append(ev)
+            return res
+
+        def timed_save(step, tree, blocking=False):
+            t0 = time.perf_counter()
+            save(step, tree, blocking)
+            saves.append((t0, time.perf_counter()))
+
+        trainer.init_state = init_and_loss_apart
+        step_mod.adamw_update = timed_update
+        trainer.ckpt.save = timed_save
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        try:
+            (params, opt_state, steps), run_s = synced_seconds(lambda: trainer.run(
+                seed=0, callback=lambda s, m: walls.append(m["wall_s"])))
+        finally:
+            step_mod.adamw_update = update
+        t_end = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ckpt_bytes = sum(p.stat().st_size for p in ckpt_dir.rglob("*") if p.is_file())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != param_count(cfg)[0] + (2 * cfg.n_layers + 1) * cfg.d_model:
+        fail(f"train (b): {n_params} parameters, param_count says {param_count(cfg)[0]} + norms")
+    losses = [m["loss_mean"] for m in trainer.metrics_log]
+    step_ms = [1e3 * (b - a) for a, b in zip([0.0] + walls[:-1], walls)]
+    opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+    tokens_step = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.median(step_ms[1:]))
+    loss16, loss32 = float(first["bf16"]), float(first["f32"])
+    out["phi4"] = dict(
+        arch=TRAIN_ARCH, n_params=n_params, options=TRAIN_OPTIONS, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=steps, init_s=first["init_s"], run_s=run_s, losses=losses,
+        step_ms=step_ms, step_ms_median_after_first=steady,
+        tokens_per_s=tokens_step / (steady * 1e-3), optimizer_ms=opt_ms, peak_gib=peak,
+        ckpt_snapshot_s=saves[0][1] - saves[0][0], ckpt_total_s=t_end - saves[0][0],
+        ckpt_gb=ckpt_bytes / 1e9, first_loss_apart=loss16, first_loss_f32=loss32,
+        model_tflop_a_step=6 * n_params * tokens_step / 1e12)
+    log(f"train (b) {TRAIN_ARCH} at full width ({n_params} parameters, {json.dumps(TRAIN_OPTIONS)}"
+        f", batch {TRAIN_BATCH} x {TRAIN_SEQ}): losses {json.dumps(losses)}; ms a step "
+        f"{json.dumps([round(x, 1) for x in step_ms])} (median after the first {steady:.1f}: "
+        f"{out['phi4']['tokens_per_s']:.1f} tokens/s); optimizer update ms "
+        f"{json.dumps([round(x, 2) for x in opt_ms])}; peak {peak:.2f} GiB; checkpoint "
+        f"{ckpt_bytes / 1e9:.2f} GB, snapshot {out['phi4']['ckpt_snapshot_s']:.2f} s, written "
+        f"{out['phi4']['ckpt_total_s']:.2f} s after the save began; {smi}")
+    log(f"train (b) first loss {losses[0]!r} against loss_fn apart {loss16!r} (bit for bit) "
+        f"and the float32-compute model's {loss32!r} (|d| {abs(loss16 - loss32):.4g}, limit "
+        f"{LM_BF16_REL} x {abs(loss32):.4g})")
+    if steps != TRAIN_STEPS or len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        fail(f"train (b): {steps} steps, losses {losses}")
+    if losses[0] != loss16:
+        fail(f"train (b): the first step's loss {losses[0]!r} is not loss_fn's {loss16!r}")
+    if abs(loss16 - loss32) > LM_BF16_REL * abs(loss32):
+        fail(f"train (b): the bf16 loss {loss16} is far from the float32 model's {loss32}")
+    if len(saves) != 1 or ckpt_bytes <= 0:
+        fail(f"train (b): {len(saves)} checkpoint saves, {ckpt_bytes} bytes")
+    # one microbatch's forward and backward at the trained parameters:
+    # its wall, and its kernel time by name from a second, profiled call
+    micro = {"tokens": torch.as_tensor(pipe.batch(0)["tokens"][:1], device=dev)}
+
+    def one_micro():
+        loss, _ = model.loss_fn(params, micro)
+        torch.autograd.grad(loss, tree_leaves(params.reference_tree()))
+
+    one_micro()
+    _, micro_s = synced_seconds(one_micro)
+    busy_s, by_kernel = device_busy(one_micro)
+    by_name: dict[str, float] = {}          # names cut to 100 characters, summed
+    for k, v in by_kernel.items():
+        by_name[k[:100]] = by_name.get(k[:100], 0.0) + v * 1e-3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    out["phi4"].update(micro_s=micro_s, micro_busy_s=busy_s, micro_top_kernels_ms=dict(top))
+    log(f"train (b) one microbatch (1 x {TRAIN_SEQ}) forward + backward: {micro_s * 1e3:.1f} ms "
+        f"wall, {busy_s * 1e3:.1f} ms of kernels (device idle "
+        + (f"{1 - busy_s / micro_s:.3f}" if busy_s > 0 else "not measured: no kernel event")
+        + "); kernel ms by name: " + json.dumps(out["phi4"]["micro_top_kernels_ms"]))
+    del params, opt_state, trainer, model, m32, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the restart drill on the card
+    dcfg = lm100m_config()
+    dmodel = build_model(dcfg)
+    dpipe = TokenPipeline(dcfg.vocab_size, DRILL_BATCH, DRILL_SEQ, seed=0)
+    dopt = AdamWConfig(warmup_steps=min(100, DRILL_STEPS // 3))
+    drill_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_drill_"))
+
+    def make(path, fail_at=None):
+        return Trainer(dmodel, dpipe, TrainerConfig(
+            n_steps=DRILL_STEPS, ckpt_every=DRILL_CKPT, ckpt_dir=str(path), log_every=100,
+            fail_at_step=fail_at), dopt)
+
+    try:
+        (clean, clean_state, _), clean_s = synced_seconds(
+            lambda: make(drill_dir / "clean").run(seed=0))
+        calls = []
+
+        def supervisor():
+            calls.append(len(calls))
+            return make(drill_dir / "fault", DRILL_FAIL if len(calls) == 1 else None)
+
+        (params, state, steps, failures), fault_s = synced_seconds(
+            lambda: run_with_restarts(supervisor, seed=0))
+    finally:
+        shutil.rmtree(drill_dir, ignore_errors=True)
+    differ = [n for (n, a), b in zip(clean.named_parameters(), params.parameters())
+              if not same_bits(a, b)]
+    differ += [f"opt leaf {i}" for i, (a, b) in enumerate(zip(
+        tree_leaves((clean_state.m, clean_state.v)), tree_leaves((state.m, state.v))))
+        if not same_bits(a, b)]
+    out["drill"] = dict(params=sum(p.numel() for p in params.parameters()), steps=steps,
+                        failures=failures, clean_s=clean_s, restarted_s=fault_s,
+                        differing_leaves=differ)
+    log(f"train (c) restart drill, {dcfg.n_layers}L x {dcfg.d_model} "
+        f"({out['drill']['params']} parameters), batch {DRILL_BATCH} x {DRILL_SEQ}: "
+        f"{steps} steps, {failures} failure at step {DRILL_FAIL} resumed from step "
+        f"{DRILL_FAIL - DRILL_FAIL % DRILL_CKPT}; clean {clean_s:.2f} s, restarted {fault_s:.2f} s;"
+        f" leaves that differ from the uninterrupted run: {differ or 'none'}")
+    if steps != DRILL_STEPS or failures != 1 or differ:
+        fail(f"train (c): the resumed run is not bit-identical to the clean one: {differ}")
+    del clean, params, clean_state, state, dmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the two entry points as a user runs them, from a scratch directory
+    runs = {}
+    for name, argv, last in (
+            ("launch.train", ["-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+                              "--reduced", "--steps", "4"], "step 4 loss"),
+            ("examples.train_lm", ["-m", "repro_torch.examples.train_lm", "--steps", "20"],
+             "step    20  loss")):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as cwd:
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, *argv], cwd=cwd, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            secs = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(last)]
+        loss = float(lines[-1].split("loss")[1].split()[0]) if lines else float("nan")
+        runs[name] = dict(rc=proc.returncode, seconds=secs, last_loss=loss)
+        log(f"train (d) python {' '.join(argv)}: rc {proc.returncode}, {secs:.1f} s, "
+            f"'{lines[-1] if lines else proc.stdout[-300:]}'")
+        if proc.returncode != 0 or not np.isfinite(loss):
+            fail(f"train (d): {name} failed: {proc.stderr[-2000:]}")
+    out["entry_points"] = runs
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("train (phase 18): " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-iter", type=int, default=1000,
@@ -2959,6 +3325,9 @@ def main() -> None:
     ap.add_argument("--lm-only", action="store_true",
                     help="phases 1, 2 and 17 (the LM serving path at full width and the "
                          "LM atlas), for iterating on it; no kernels line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="phases 1, 2 and 18 (the LM training path, phi4_mini_3p8b at full "
+                         "width), for iterating on it; no kernels line")
     args = ap.parse_args()
 
     t_run = time.perf_counter()
@@ -2967,8 +3336,8 @@ def main() -> None:
     from repro_torch.kernels import ops
     build_logs = phase_build()
 
-    if args.lm_only:
-        phase_lm(smi)
+    if args.lm_only or args.train_only:
+        (phase_lm if args.lm_only else phase_train)(smi)
         log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2996,8 +3365,11 @@ def main() -> None:
     # phase 16 first: late in a long run, torch.profiler on the card's
     # machine has recorded no kernel event at all (phase 14's device times)
     contracts = phase_contracts(smi, build_logs)
-    # phase 17 next, while the card is empty: its model holds 27.6 GB
+    # phases 17 and 18 next, while the card is empty: their models hold
+    # 27.6 GB and 15.3 GB (with its optimizer, gradients and activations
+    # ~55 GiB)
     lm = phase_lm(smi)
+    phase_train(smi)
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
 

@@ -76,8 +76,10 @@ RENAMED = {
 }
 # per-step paths: the sharded gradient and update the reference compiles
 # through shard_map, the descent loop that queues every step of a fit, the
-# service's tick (one transform_step for every lane) and the LM engine's
-# tick (one decode_step for every slot)
+# service's tick (one transform_step for every lane), the LM engine's
+# tick (one decode_step for every slot) and the LM train step (the
+# reference jits it in Trainer.__init__; its nested train_step runs the
+# forward, the backward and the optimizer update of every step)
 STEP_PATHS = frozenset(f"{PORT}/{p}" for p in (
     "core/tsne.py::descend",
     "core/distributed.py::local_bh_gradient",
@@ -85,6 +87,7 @@ STEP_PATHS = frozenset(f"{PORT}/{p}" for p in (
     "core/distributed.py::gd_update_sharded",
     "embed/service.py::EmbeddingService.step",
     "serve/engine.py::ServeEngine.step",
+    "train/step.py::make_train_step",
 ))
 HOT_PATHS = JIT_COUNTERPARTS | STEP_PATHS
 

@@ -4,9 +4,10 @@ t-SNE has no weights.  What one package's run hands the other is the
 fitted sparse input-similarity graph, the descent state (whole, or split
 over a device mesh by :func:`shard_state`) and a fitted random-projection
 forest.  The LM substrate does have weights: :func:`lm_params_from_numpy`
-carries a dense decoder's parameter tree across and
-:func:`kv_cache_from_numpy` its stacked KV cache.  Everything crosses as
-numpy arrays (never framework objects), so this module needs nothing of
+carries a dense decoder's parameter tree across (and
+:func:`lm_params_to_numpy` back), :func:`adamw_state_from_numpy` its
+optimizer state and :func:`kv_cache_from_numpy` its stacked KV cache.
+Everything crosses as numpy arrays (never framework objects), so this module needs nothing of
 the JAX package.  The LM functions import the LM package when called: the
 t-SNE half does not load it.
 """
@@ -21,10 +22,12 @@ from repro_torch.core.similarity import ell_row_lengths
 from repro_torch.core.tsne import NeighborGraph, TsneState
 from repro_torch.device import resolve_device
 from repro_torch.neighbors.rp_forest import RPForestIndex
+from repro_torch.tree import tree_map
 
 if TYPE_CHECKING:
     from repro_torch.configs.base import ArchConfig
     from repro_torch.models.model import DenseLM
+    from repro_torch.train.optimizer import AdamWState
 
 
 def graph_from_numpy(p_cols, p_vals, p_logp, n: int | None = None, *,
@@ -106,7 +109,7 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> DenseLM:
     ``x @ w``, as the reference does), so nothing is transposed.
     ``layers`` may be the scanned layout (a dict whose leaves are stacked
     ``[L, ...]``, ``scan_layers=True``) or a list of block dicts."""
-    from repro_torch.models.model import DenseLM, tree_map
+    from repro_torch.models.model import DenseLM
     dev = resolve_device(device)
     layers = tree["layers"]
     if isinstance(layers, dict):
@@ -117,6 +120,40 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> DenseLM:
     pd = cfg.pdtype()
     return DenseLM(cfg, tree_map(lambda a: _tensor(a, dev).to(pd),
                                  {**tree, "layers": list(layers)}))
+
+
+def lm_params_to_numpy(params: DenseLM, stacked: bool = True) -> dict:
+    """The reference's parameter tree (``jax.tree.map(np.asarray, params)``'s
+    form) from a :class:`~repro_torch.models.model.DenseLM`: ``layers`` a
+    block dict of stacked ``[L, ...]`` arrays (``scan_layers=True``), or the
+    list of block dicts.  Copied to the host, then stacked there; bfloat16
+    parameters come back as float32 arrays (exact: numpy has no bfloat16)."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().to("cpu", copy=True)
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    tree = tree_map(host, params.tree())
+    if stacked:
+        tree["layers"] = tree_map(lambda *a: np.stack(a), *tree["layers"])
+    return tree
+
+
+def adamw_state_from_numpy(cfg: ArchConfig, state, *, device=None) -> AdamWState:
+    """The port's :class:`~repro_torch.train.optimizer.AdamWState` from the
+    reference's (its fields as numpy arrays, ``jax.tree.map(np.asarray,
+    state)``): the step as an int, ``m`` and ``v`` in their own dtypes
+    (bfloat16 by its bits) and structure (factored ``{row, col}`` dicts
+    kept).  The layers' layout must be ``cfg``'s: stacked ``[L, ...]``
+    leaves with ``scan_layers``, else a list of block dicts."""
+    from repro_torch.train.optimizer import AdamWState
+    dev = resolve_device(device)
+    step, m, v = state
+    for tree in (m, v):
+        if isinstance(tree["layers"], dict) != cfg.scan_layers:
+            raise ValueError(f"the state's layers are {type(tree['layers']).__name__}s; "
+                             f"{cfg.name} has scan_layers={cfg.scan_layers}")
+    to = lambda a: _tensor(a, dev)  # noqa: E731
+    return AdamWState(step=int(np.asarray(step)), m=tree_map(to, m), v=tree_map(to, v))
 
 
 def kv_cache_from_numpy(cache, *, device=None) -> dict:

@@ -1,6 +1,6 @@
 """Shared model building blocks: norms, RoPE, SwiGLU, attention cores: port
-of ``repro/models/layers.py`` (the forward passes; the custom VJP of
-``chunked_attention`` comes with training).
+of ``repro/models/layers.py``, ``chunked_attention``'s custom VJP as a
+``torch.autograd.Function``.
 
 Plain PyTorch that mirrors the reference's ``jnp`` operation for operation,
 including where it casts: the reference computes these outside any Pallas
@@ -106,10 +106,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                       chunk: int = 512) -> torch.Tensor:
-    """Flash attention's forward: an online softmax over KV chunks, never
-    materialising the [Sq, Skv] score matrix."""
-    out, _ = _fa_forward(q, k, v, causal, chunk)
-    return out
+    """Flash attention (an online softmax over KV chunks) with the
+    reference's custom backward.
+
+    The forward never materialises the [Sq, Skv] score matrix; the
+    backward recomputes each chunk's probabilities from the saved
+    ``(out, lse)`` instead of differentiating through the chunk loop,
+    which would save the float32 accumulator of every chunk."""
+    return _FlashAttention.apply(q, k, v, causal, chunk)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_make_flash``: forward ``_fa_forward``, which
+    saves ``(q, k, v, out, lse)``; backward :func:`_fa_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, chunk: int):
+        out, lse = _fa_forward(q, k, v, causal, chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.chunk = causal, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_fa_backward(q, k, v, out, lse, dout, ctx.causal, ctx.chunk), None, None)
 
 
 def _pad_kv(k: torch.Tensor, chunk: int) -> tuple[torch.Tensor, int]:
@@ -157,3 +178,48 @@ def _fa_forward(q, k, v, causal: bool, chunk: int):
     out = (acc / l_safe[..., None]).transpose(1, 2).to(q.dtype)
     lse = m + torch.log(l_safe)
     return out, lse
+
+
+def _fa_backward(q, k, v, out, lse, dout, causal: bool, chunk: int):
+    """(dq, dk, dv) in q's, k's and v's dtypes: the reference's ``bwd``
+    line for line.  ``delta = rowsum(dout * out)``; per KV chunk the
+    probabilities ``p = exp(s - lse)`` (masked like the forward), ``dv``,
+    ``dp`` and ``ds = p * (dp - delta) * scale``; ``dq`` accumulates in
+    float32 and each chunk's ``dk``/``dv`` is summed over the GQA group
+    onto its KV head and cast to K's (V's) dtype; the padding is cut off.
+    Never materialises [Sq, Skv]: a chunk's [B, H, Sq, chunk] at a time."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    n_rep = h // hkv
+    kp, kv_valid = _pad_kv(k, chunk)
+    vp, _ = _pad_kv(v, chunk)
+    n_chunks = kp.shape[1] // chunk
+    scale = dh**-0.5
+    qf = q.float()
+    doutf = dout.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", doutf, out.float())        # [B, H, Sq]
+    lse_safe = torch.where(torch.isfinite(lse), lse, 0.0)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+
+    dq = torch.zeros((b, sq, h, dh), dtype=torch.float32, device=q.device)
+    dk_chunks, dv_chunks = [], []
+    for c in range(n_chunks):
+        kc = _repeat_kv(kp[:, c * chunk:(c + 1) * chunk], n_rep).float()
+        vc = _repeat_kv(vp[:, c * chunk:(c + 1) * chunk], n_rep).float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc) * scale
+        kpos = c * chunk + torch.arange(chunk, device=q.device)[None, :]
+        valid = kpos < kv_valid
+        if causal:
+            valid = valid & (kpos <= qpos)
+        p = torch.where(valid[None, None], torch.exp(s - lse_safe[..., None]), 0.0)
+        dv_c = torch.einsum("bhqk,bqhd->bkhd", p, doutf)
+        dp = torch.einsum("bqhd,bkhd->bhqk", doutf, vc)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds, kc)
+        dk_c = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+        # sum the GQA query-head group back onto the shared KV head
+        dk_chunks.append(dk_c.reshape(b, chunk, hkv, n_rep, dh).sum(3).to(k.dtype))
+        dv_chunks.append(dv_c.reshape(b, chunk, hkv, n_rep, dh).sum(3).to(v.dtype))
+    dk = torch.cat(dk_chunks, dim=1)[:, :k.shape[1]]
+    dv = torch.cat(dv_chunks, dim=1)[:, :v.shape[1]]
+    return dq.to(q.dtype), dk, dv

@@ -1,21 +1,25 @@
-"""Top-level model API: ``build_model(cfg)`` -> init / prefill / decode: port
-of ``repro/models/model.py`` for the dense family (the serving path).
+"""Top-level model API: ``build_model(cfg)`` -> init / loss / prefill /
+decode: port of ``repro/models/model.py`` for the dense family.
 
     model = build_model(get_config("deepseek_7b"))          # on cuda
     params = model.init(torch.Generator("cuda").manual_seed(0))
+    loss, metrics = model.loss_fn(params, {"tokens": tokens})   # tokens [B, S + 1]
     logits = model.prefill(params, {"tokens": tokens})      # [B, V], last position
     cache = model.init_cache(batch, seq)
     logits, cache = model.decode_step(params, cache, token, pos)
 
 ``build_model`` returns the reference's namespace (``cfg``, ``init``,
-``prefill``, ``decode_step``, ``init_cache``, plus ``device``), so
-``serve.engine.ServeEngine`` reads the same in both packages.  ``params`` is
-a :class:`DenseLM`: an ``nn.Module`` holding the reference's parameter tree
-as ``nn.Parameter`` objects in ``param_dtype``.  Every call casts the float
-parameters to ``compute_dtype`` (as the reference does), embeds from the
-cast table, and runs under ``torch.no_grad``.  ``loss_fn`` and ``_mtp_loss``
-come with training, ``input_specs`` with the dry-run launcher; the other
-families raise ``NotImplementedError`` (ROADMAP.md §1 item 2).
+``loss_fn``, ``prefill``, ``decode_step``, ``init_cache``, plus ``device``),
+so ``serve.engine.ServeEngine`` and ``train.trainer.Trainer`` read the same
+in both packages.  ``params`` is a :class:`DenseLM`: an ``nn.Module``
+holding the reference's parameter tree as ``nn.Parameter`` objects in
+``param_dtype``.  Every call casts the float parameters to
+``compute_dtype`` (as the reference does) and embeds from the cast table;
+``prefill`` and ``decode_step`` run under ``torch.no_grad``, ``loss_fn``
+differentiates back through the cast to the stored parameters.
+``_mtp_loss`` comes with the MoE family, ``input_specs`` with the dry-run
+launcher; the other families raise ``NotImplementedError`` (ROADMAP.md §1
+item 2).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import init_dense, rms_norm
 from repro_torch.models.transformer import init_stack, stack_forward
+from repro_torch.tree import Stacked, tree_map
 
 NOT_PORTED = {
     "moe": "ROADMAP.md §1 item 2, slice 3 (the other families: mla, moe)",
@@ -36,15 +41,6 @@ NOT_PORTED = {
     "audio": "ROADMAP.md §1 item 2, slice 3 (the other families: audio cross-attention)",
     "vlm": "ROADMAP.md §1 item 2, slice 3 (the other families: vlm patches)",
 }
-
-
-def tree_map(fn, tree):
-    """``fn`` over the tensors of a tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 class _Block(nn.Module):
@@ -66,18 +62,26 @@ class DenseLM(nn.Module):
     """The dense decoder's parameters as a module.  Built from the
     reference's tree (``embed.embedding [V, D]``, ``final_ln [D]``,
     ``unembed [D, V]`` unless tied, ``layers`` a list of block dicts with
-    ``[in, out]`` weights); :meth:`tree` gives that tree back.  Not called
-    itself: ``build_model``'s functions take it as ``params``.  The
-    parameters are frozen (``requires_grad=False``): serving needs no
-    gradients."""
+    ``[in, out]`` weights, or the scanned layout: one block dict whose
+    leaves are ``[L, ...]`` tensors or :class:`~repro_torch.tree.Stacked`);
+    :meth:`tree` gives it back with a list of layers, :meth:`reference_tree`
+    in the reference's own layout.  Not called itself: ``build_model``'s
+    functions take it as ``params``.  The parameters are frozen
+    (``requires_grad=False``) until a caller trains them:
+    ``params.requires_grad_(True)``, as ``train.step``'s step does."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
         self.cfg = cfg
+        layers = tree["layers"]
+        if isinstance(layers, dict):
+            layers = [tree_map(lambda a, i=i: a[i], layers,
+                               is_leaf=lambda x: isinstance(x, Stacked))
+                      for i in range(cfg.n_layers)]
         self.embedding = nn.Parameter(tree["embed"]["embedding"])
         self.final_ln = nn.Parameter(tree["final_ln"])
         self.unembed = None if cfg.tie_embeddings else nn.Parameter(tree["unembed"])
-        self.layers = nn.ModuleList(_Block(layer) for layer in tree["layers"])
+        self.layers = nn.ModuleList(_Block(layer) for layer in layers)
         self.requires_grad_(False)
 
     def tree(self) -> dict:
@@ -87,9 +91,43 @@ class DenseLM(nn.Module):
             out["unembed"] = self.unembed
         return out
 
+    def reference_tree(self) -> dict:
+        """The tree in the reference's layout: with ``cfg.scan_layers``,
+        ``layers`` is one block dict whose leaves are ``Stacked`` (the L
+        per-layer parameters of each stacked leaf); else the list.  The
+        optimizer's state and the checkpoints follow this layout."""
+        out = self.tree()
+        if self.cfg.scan_layers:
+            out["layers"] = tree_map(lambda *ps: Stacked(ps), *out["layers"])
+        return out
+
+    # a checkpoint saves the reference's layout (Stacked leaves are stacked
+    # on the host) and restores a new module from it
+    checkpoint_tree = reference_tree
+
+    def from_checkpoint_tree(self, tree: dict) -> DenseLM:
+        return DenseLM(self.cfg, tree)
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood in float32 (over the
+    mask's ones when a mask is given)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:
+        denom = nll.numel()
+    return nll.sum() / denom
+
 
 def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
-    """The dense family's serving functions on ``device`` (default cuda)."""
+    """The dense family's training and serving functions on ``device``
+    (default cuda)."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: {NOT_PORTED[cfg.family]}")
@@ -114,7 +152,10 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
 
     def _cast(params: DenseLM) -> dict:
         """The float parameters in the compute dtype (storage stays
-        param_dtype): a copy each call unless the two dtypes are equal."""
+        param_dtype): a copy each call unless the two dtypes are equal.
+        Differentiable: the copy's gradient comes back to the parameter in
+        its dtype, as JAX's ``astype`` cotangent does (with tied embeddings
+        the gather's and the head's gradients add on the copy first)."""
         return tree_map(lambda p: p.to(dtype) if p.is_floating_point() else p, params.tree())
 
     def _embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -127,6 +168,22 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
 
     def _tokens(t) -> torch.Tensor:
         return torch.as_tensor(t, device=dev).long()
+
+    def loss_fn(params: DenseLM, batch: dict):
+        """(loss, metrics): the next-token cross-entropy of ``batch["tokens"]``
+        [B, S + 1] over S positions; metrics ``lm_loss`` and ``loss``."""
+        if cfg.mtp:
+            raise NotImplementedError(
+                "the MTP loss runs the MoE block: ROADMAP.md §1 item 2, slice 3 (the "
+                "other families: moe)")
+        p = _cast(params)
+        tokens = _tokens(batch["tokens"])
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        x = _embed(p, inputs)
+        positions = torch.arange(inputs.shape[1], device=dev)
+        h = stack_forward(p["layers"], x, positions, cfg)
+        loss = _cross_entropy(_head(p, h), labels)
+        return loss, {"lm_loss": loss, "loss": loss}
 
     @torch.no_grad()
     def prefill(params: DenseLM, batch: dict) -> torch.Tensor:
@@ -156,5 +213,5 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
-    return SimpleNamespace(cfg=cfg, device=dev, init=init, prefill=prefill,
+    return SimpleNamespace(cfg=cfg, device=dev, init=init, loss_fn=loss_fn, prefill=prefill,
                            decode_step=decode_step, init_cache=init_cache)

@@ -2,13 +2,16 @@
 
 The reference scans a stacked ``[L, ...]`` parameter pytree with optional
 remat; the port keeps one parameter dict a layer and loops over them in
-Python (``remat`` and ``scan_layers`` shape a compiled training graph and
-change nothing in an eager forward).  The MoE, MLA, enc-dec and hybrid
+Python.  ``cfg.remat`` wraps each block in
+``torch.utils.checkpoint.checkpoint`` when gradients are on (the
+reference's ``jax.checkpoint`` of the scan body): the backward keeps each
+block's input and recomputes the rest.  The MoE, MLA, enc-dec and hybrid
 blocks come with the other families (ROADMAP.md §1 item 2, slice 3).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention_block, init_attention
@@ -50,7 +53,13 @@ def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchCon
                   cache=None, cache_pos=None) -> torch.Tensor:
     """Loop over the block dicts.  ``cache`` is the stacked ``{k, v}`` of
     ``[L, B, S, Hkv, dh]`` tensors (layer i reads and writes its view
-    ``cache["k"][i]`` in place), or None."""
+    ``cache["k"][i]`` in place), or None.  Each block is rematerialised
+    in the backward when ``cfg.remat`` and gradients are on (serving runs
+    under ``no_grad``, so never there)."""
+    if cache is None and cfg.remat and torch.is_grad_enabled():
+        for layer in params:
+            x = checkpoint(block_forward, layer, x, positions, cfg, use_reentrant=False)
+        return x
     for i, layer in enumerate(params):
         layer_cache = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
         x = block_forward(layer, x, positions, cfg, cache=layer_cache, cache_pos=cache_pos)

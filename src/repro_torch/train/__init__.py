@@ -1,1 +1,2 @@
-"""Training-loop support of the port: checkpoints (``train/checkpoint.py``)."""
+"""Training of the port (port of ``repro/train``): AdamW, the train step,
+the restart-safe trainer, checkpoints and the MoE router-bias update."""

@@ -131,7 +131,8 @@ class TestHotPaths:
         assert hostsync.HOT_PATHS == hostsync.JIT_COUNTERPARTS | hostsync.STEP_PATHS
         assert {p.partition("::")[2] for p in hostsync.STEP_PATHS} == {
             "descend", "local_bh_gradient", "distributed_bh_gradient",
-            "gd_update_sharded", "EmbeddingService.step", "ServeEngine.step"}
+            "gd_update_sharded", "EmbeddingService.step", "ServeEngine.step",
+            "make_train_step"}
 
     def test_every_hot_path_names_a_port_function(self):
         for entry in sorted(hostsync.HOT_PATHS):

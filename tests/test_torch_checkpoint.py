@@ -82,8 +82,8 @@ def test_dict_state_round_trip_and_device(tmp_path):
     got, step = mgr.restore({"a": torch.zeros(2), "step": 0, "w": torch.zeros(1)})
     assert step == 1 and got["step"] == 5
     assert torch.equal(got["w"], state["w"]) and torch.equal(got["a"], state["a"])
-    with pytest.raises(TypeError, match="NamedTuple or a dict"):
-        mgr.save(2, [torch.zeros(1)])
+    with pytest.raises(TypeError, match="a tensor, an array or an int"):
+        mgr.save(2, {"w": "not an array"})
 
 
 def test_keep_collects_old_steps(tmp_path):
