@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mouse-only     # phases 1, 2, 14 and 15 (the mouse embedding only)
     python3 chip_smoke.py --lm-only        # phases 1, 2 and 17 (the LM serving path only)
     python3 chip_smoke.py --train-only     # phases 1, 2 and 18 (the LM training path only)
+    python3 chip_smoke.py --moe-only       # phases 1, 2 and 19 (the MoE family only)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -282,6 +283,43 @@ result line):
                phi4_mini_3p8b --reduced --steps 4 and python -m
                repro_torch.examples.train_lm --steps 20 on the card, from a
                scratch directory: exit 0 and a finite last loss.
+19. moe      -- (right after phase 18, its model freed) the MoE family:
+               deepseek_v2_lite_16b at full width and depth (27 layers,
+               the first dense; 26 of 64 experts top-6 with 2 shared; MLA
+               with kv_lora 512; vocab 102 400; 15.7 B parameters by
+               param_count), the port's own init from a seeded
+               generator, TF32 off.  (a) float32 storage and compute
+               (58.5 GiB) with capacity_factor raised to 64, as the
+               reference's test does: prefill of 2 x 64 tokens against 64
+               decode steps (the absorbed decode against the latent cache
+               against the materialised path), last logits within
+               rtol 1e-3 / atol 1e-4 and the same argmax.  (b) bf16
+               storage and compute at the published capacity_factor
+               1.25 (each expert takes one token a tick at 8 slots):
+               ServeEngine(slots=8, max_seq=512) over 16 requests (prompts
+               of 64-192 seeded tokens, 64 new tokens each), all complete
+               inside the vocabulary; prints the median decode tick
+               against its byte bound, generated tokens/s, peak GiB and
+               the latent cache's bytes against a per-head K/V cache's of
+               the same shape.  Cut: storage float32 -> bf16 (float32
+               storage plus the bf16 copy _cast makes every call would be
+               94 GB).  (c) float32 storage, bf16 compute, depth 27 -> 4
+               (one dense layer, three MoE; 2.26 B parameters), batch 4 x
+               1 024 (TokenPipeline seed 0) through Trainer.run for 4
+               steps: the losses finite, aux_loss finite and positive, the
+               first loss equal to loss_fn apart on the initial
+               parameters bit for bit (the combine sums each row's terms
+               in a fixed order); prints step ms, tokens/s, peak GiB.  Cuts: depth 27 -> 4, train_4k's batch 256 x 4 096 ->
+               4 x 1 024, 4 steps; its one checkpoint is not written
+               (phase 18 writes one).  (d) the reduced deepseek_v3_671b
+               (sigmoid_bias router with norm_topk_prob, q_lora, MTP, bf16
+               factored moments, 8 microbatches): one train step with
+               mtp_loss among its metrics, one ServeEngine run inside the
+               vocabulary, and its float32 loss on the card against the
+               CPU's (rtol 1e-4).  (e) tie order: the routed FFN at full
+               width on 4 096 rows of planted exact ties (equal rows, and
+               an under-full expert's zero gates): the top-6 and every
+               capacity selection equal on the card and on the CPU.
 
 Every kernel must be launched by at least one of the two fits.  Each
 driven path (the two fits, the service, the sharded fit, the mouse
@@ -300,6 +338,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -3309,6 +3348,376 @@ def phase_train(smi: str) -> dict:
     return out
 
 
+# Phase 19: the MoE family.  deepseek_v2_lite_16b: 27 layers (the first
+# dense, d_ff 10 944; 26 MoE layers of 64 experts top-6 with d_ff 1 408
+# and 2 shared), d_model 2 048, 16 heads of MLA (kv_lora 512, rope 64,
+# nope 128, v 128), vocab 102 400: 15 706 357 760 parameters by
+# param_count.  (a) float32 storage and compute (58.5 GiB) at
+# capacity_factor 64, the reference's own decode-against-prefill setting;
+# (b) bf16 storage and compute at the published capacity_factor 1.25;
+# (c) float32 storage, bf16 compute, depth cut 27 -> 4.
+MOE_ARCH = "deepseek_v2_lite_16b"
+MOE_DECODE = (2, 64)          # (a) batch x tokens: prefill against decode, float32
+MOE_SLOTS, MOE_MAX_SEQ = 8, 512
+MOE_REQUESTS, MOE_NEW = 16, 64
+MOE_PROMPT = (64, 192)        # prompt lengths drawn from [64, 192]
+MOE_TRAIN_LAYERS = 4          # (c): one dense layer, three MoE layers
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 1024, 4
+MOE_V3_ARCH = "deepseek_v3_671b"
+MOE_V3_BATCH = 8              # the reduced v3's grad_accum is 8
+MOE_TIE_ROWS = 4096           # (e): the training step's t = 4 x 1 024 rows
+
+
+def moe_tick_bounds(n_params: int, cfg) -> dict:
+    """The least time of one MoE decode tick at MOE_SLOTS x MOE_MAX_SEQ on
+    this card, by bytes (ms): every parameter read once in bf16 (the
+    reference's routed FFN runs each expert over its capacity, so every
+    expert's weights are read every tick), and the latent cache read
+    (ckv and krope of every layer over every slot's capacity, bf16).
+    Beside it the latent cache's bytes and those of a per-head KV cache of
+    the same shape (K of qk_nope + qk_rope, V of v_head_dim, per head)."""
+    m = cfg.mla
+    rows = cfg.n_layers * MOE_SLOTS * MOE_MAX_SEQ
+    latent = rows * (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+    per_head = rows * cfg.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim) * 2
+    return dict(params_ms=2 * n_params / PEAK_HBM_BYTES * 1e3,
+                cache_ms=latent / PEAK_HBM_BYTES * 1e3,
+                tick_bound_ms=(2 * n_params + latent) / PEAK_HBM_BYTES * 1e3,
+                latent_cache_bytes=latent, per_head_cache_bytes=per_head)
+
+
+def moe_config(cfg, **kw):
+    """``cfg`` with ``kw`` replaced; a ``capacity_factor`` goes into its
+    MoE config."""
+    import dataclasses
+    cf = kw.pop("capacity_factor", None)
+    cfg = dataclasses.replace(cfg, **kw)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_moe_ties(gen) -> dict:
+    """Phase 19 (e): tie order on the card.  At full width (64 experts,
+    top-6) on MOE_TIE_ROWS rows made of 585 distinct rows repeated 7 or 8
+    times (interleaved), so that equal rows carry bit-equal router
+    probabilities and gates by construction (the CPU routes the distinct
+    rows once); the rows lie near one direction, so that some experts are
+    over-full and at least one capacity cut falls inside a group of equal
+    gates (the phase fails otherwise): the top-6 over experts and every
+    expert's capacity selection, each on the card and on the CPU from the
+    same tensors,
+    must be equal index for index (the ties broken by index, as
+    lax.top_k does), and the routed FFN's outputs within 1e-4 of their
+    scale.  Prints how many experts are over-full with the capacity's
+    boundary inside a group of equal gates, and on how many experts the
+    tie-blind torch.topk would select other tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCH)
+    m, d, f = cfg.moe, cfg.d_model, cfg.moe.expert_d_ff
+    cpu = torch.Generator().manual_seed(int(torch.randint(0, 2**31, (1,), generator=gen,
+                                                          device=gen.device)))
+    distinct = MOE_TIE_ROWS // 7
+    # rows near one direction route alike: their top experts are over-full
+    # and cut at capacity inside groups of equal gates
+    xb = torch.randn(1, d, generator=cpu) + 0.3 * torch.randn(distinct, d, generator=cpu)
+    perm = torch.randperm(MOE_TIE_ROWS, generator=cpu) % distinct
+    w = torch.randn(d, m.n_experts, generator=cpu) * d**-0.5
+    weights, idx_b, probs_b = moe._route(xb, w, torch.zeros(m.n_experts), cfg)
+    gate_b = moe._gate_matrix(weights, idx_b, 0, m.n_experts)
+    x, probs, gate = xb[perm], probs_b[perm], gate_b[perm]
+    ws = [torch.randn(m.n_experts, a, b, generator=cpu) * a**-0.5
+          for a, b in ((d, f), (d, f), (f, d))]
+    capacity = max(1, int(MOE_TIE_ROWS * m.top_k / m.n_experts * m.capacity_factor))
+    got = {}
+    for where in ("cuda", "cpu"):
+        got[where] = dict(
+            idx=moe.top_k(probs.to(where), m.top_k)[1].cpu(),
+            sel=moe.top_k(gate.T.to(where), capacity)[1].cpu(),
+            y=moe._routed_ffn_local(x.to(where), gate.to(where), *(t.to(where) for t in ws),
+                                    capacity).cpu())
+    vals = torch.sort(gate.T, dim=-1, descending=True).values
+    full = (vals[:, capacity] > 0)
+    boundary_ties = int((full & (vals[:, capacity - 1] == vals[:, capacity])).sum())
+    blind = torch.topk(gate.T.cuda(), capacity).indices.cpu()
+    res = dict(rows=MOE_TIE_ROWS, distinct=distinct, capacity=capacity,
+               over_full_experts=int(full.sum()), boundary_ties=boundary_ties,
+               route_equal=torch.equal(got["cuda"]["idx"], got["cpu"]["idx"]),
+               selection_equal=torch.equal(got["cuda"]["sel"], got["cpu"]["sel"]),
+               topk_differs_on_experts=int((torch.sort(blind, -1).values != torch.sort(
+                   got["cuda"]["sel"], -1).values).any(-1).sum()),
+               y_max_abs_err=float((got["cuda"]["y"] - got["cpu"]["y"]).abs().max()),
+               y_scale=float(got["cpu"]["y"].abs().max()))
+    log(f"moe (e) planted ties, {MOE_TIE_ROWS} rows ({distinct} distinct, 7 or 8 copies each), "
+        f"capacity {capacity}: {res['over_full_experts']} of {m.n_experts} experts over-full, "
+        f"{boundary_ties} with the capacity's boundary inside equal gates; top-{m.top_k} over "
+        f"experts equal card vs CPU {res['route_equal']}, capacity selection equal "
+        f"{res['selection_equal']}; torch.topk's selection would differ on "
+        f"{res['topk_differs_on_experts']} experts; routed FFN max |d| "
+        f"{res['y_max_abs_err']:.3e} (scale {res['y_scale']:.3f}, limit 1e-4 x scale)")
+    if boundary_ties == 0:
+        fail("moe (e): no expert's capacity boundary falls inside a group of equal gates")
+    if not (res["route_equal"] and res["selection_equal"]):
+        fail("moe (e): the card selects other tokens than the CPU on planted ties")
+    if res["y_max_abs_err"] > 1e-4 * res["y_scale"]:
+        fail("moe (e): the routed FFN on the card disagrees with the CPU's")
+    return res
+
+
+def phase_moe(smi: str) -> dict:
+    """Phase 19: the MoE family; see the module docstring."""
+    from repro_torch.configs import get_config, get_reduced_config, param_count
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    free_card()
+    dev = torch.device("cuda")
+    full = get_config(MOE_ARCH)
+    n_norms = lambda p: sum(t.numel() for n, t in p.named_parameters()      # noqa: E731
+                            if n.rsplit(".", 1)[-1] in ("ln1", "ln2", "final_ln", "kv_ln", "bias"))
+    out = {"arch": MOE_ARCH}
+
+    # (a) decode against prefill, float32 storage and compute, capacity factor 64
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = moe_config(full, compute_dtype="float32", capacity_factor=64.0)
+    m32 = build_model(cfg32)
+    params, init_s = synced_seconds(lambda: m32.init(torch.Generator(dev).manual_seed(0)))
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != param_count(full)[0] + n_norms(params):
+        fail(f"moe: {n_params} parameters, param_count says {param_count(full)[0]} + norms")
+    log(f"moe (phase 19): {MOE_ARCH} at full width and depth, {n_params} parameters "
+        f"({n_params * 4 / 2**30:.2f} GiB in float32) initialised in {init_s:.2f} s; {smi}")
+    gen = torch.Generator(dev).manual_seed(1)
+    b, s = MOE_DECODE
+    tokens = torch.randint(0, full.vocab_size, (b, s), generator=gen, device=dev)
+    want, prefill_s = synced_seconds(lambda: m32.prefill(params, {"tokens": tokens}))
+    cache = m32.init_cache(b, s)
+    t0 = time.perf_counter()
+    for t in range(s):
+        logits, cache = m32.decode_step(params, cache, tokens[:, t],
+                                        torch.full((b,), t, device=dev))
+    torch.cuda.synchronize()
+    err = float((logits - want).abs().max())
+    same = torch.equal(logits.argmax(-1), want.argmax(-1))
+    out.update(n_params=n_params, init_s=init_s, f32_prefill_s=prefill_s,
+               f32_decode_ms=(time.perf_counter() - t0) / s * 1e3, f32_decode_vs_prefill=err,
+               f32_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"moe (a) float32, capacity factor 64, {b} x {s} tokens: decode's last logits against "
+        f"prefill's max |d| {err:.3e} (scale {float(want.abs().max()):.3f}; rtol 1e-3, atol "
+        f"1e-4), argmax equal {same}; prefill {prefill_s * 1e3:.1f} ms, "
+        f"{out['f32_decode_ms']:.2f} ms a float32 decode step")
+    if not torch.allclose(logits, want, rtol=1e-3, atol=1e-4) or not same:
+        fail("moe (a): float32 decode does not reproduce prefill's last logits")
+    del params, cache, logits, want, m32
+    free_card()
+
+    # (b) serving in bf16 at the published capacity factor: 16 requests through 8 slots
+    cfg16 = moe_config(full, param_dtype="bfloat16")
+    m16 = build_model(cfg16)
+    params = m16.init(torch.Generator(dev).manual_seed(0))
+    bounds = moe_tick_bounds(n_params, full)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, full.vocab_size, int(n)).tolist()
+               for n in rng.integers(MOE_PROMPT[0], MOE_PROMPT[1] + 1, MOE_REQUESTS)]
+    eng = ServeEngine(m16, batch_slots=MOE_SLOTS, max_seq=MOE_MAX_SEQ, params=params)
+    for r, prompt in enumerate(prompts):
+        eng.submit(Request(rid=r, prompt=prompt, max_new_tokens=MOE_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ticks, window = [], []      # wall seconds of each tick: served, and profiled
+    while eng.queue or any(a is not None for a in eng.active):
+        if len(ticks) == LM_PROFILE_AT and not window:
+            # the device's share of a tick: the kernel time of a window of
+            # this run's own ticks against the median of its other ticks
+            def profiled():
+                for _ in range(LM_PROFILED_TICKS):
+                    t0 = time.perf_counter()
+                    eng.step()
+                    window.append(time.perf_counter() - t0)
+            events = kernel_events(profiled)
+            continue
+        t0 = time.perf_counter()
+        eng.step()          # ends in the argmax's read-back: the tick is done
+        ticks.append(time.perf_counter() - t0)
+    if len(window) != LM_PROFILED_TICKS:
+        fail(f"moe (b): the serving run ended before its profiled window ({len(ticks)} ticks)")
+    serve_s = sum(ticks) + sum(window)
+    by_kernel = {k: sum(v) for k, v in events.items()}
+    busy_ms = sum(by_kernel.values()) * 1e-3 / LM_PROFILED_TICKS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    done = sorted(eng.completed, key=lambda r: r.rid)
+    if len(done) != MOE_REQUESTS or any(
+            len(r.generated) != MOE_NEW or not all(0 <= t < full.vocab_size
+                                                   for t in r.generated) for r in done):
+        fail(f"moe (b): {len(done)} of {MOE_REQUESTS} requests completed, not all with "
+             f"{MOE_NEW} tokens inside the vocabulary")
+    generated = sum(len(r.generated) for r in done)
+    tick_ms = float(np.median(ticks)) * 1e3
+    cache_bytes = sum(t.numel() * t.element_size() for part in eng.cache.values()
+                      if part is not None for t in part.values())
+    n_ticks = len(ticks) + len(window)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    out["serve"] = dict(
+        requests=MOE_REQUESTS, ticks=n_ticks, generated=generated,
+        profiled_tick_ms_median=float(np.median(window)) * 1e3,
+        device_busy_ms_a_tick=busy_ms if busy_ms > 0 else None,
+        kernels_a_tick=sum(map(len, events.values())) / LM_PROFILED_TICKS,
+        top_kernels_ms_a_tick={k[:70]: v * 1e-3 / LM_PROFILED_TICKS for k, v in top},
+        prompt_tokens=sum(map(len, prompts)), serve_s=serve_s, tick_ms_median=tick_ms,
+        tick_ms_p10_p90=[float(np.percentile(ticks, q)) * 1e3 for q in (10, 90)],
+        generated_tokens_per_s=generated / serve_s,
+        all_tokens_per_s=(generated + sum(map(len, prompts))) / serve_s, peak_gib=peak,
+        cache_bytes=cache_bytes, bounds=bounds, serve_stats=eng.stats())
+    m = cfg16.moe
+    log(f"moe (b) serving bf16, capacity factor {m.capacity_factor} (capacity "
+        f"{max(1, int(MOE_SLOTS * m.top_k / m.n_experts * m.capacity_factor))} a tick at "
+        f"{MOE_SLOTS} slots), {MOE_SLOTS} slots x {MOE_MAX_SEQ}: {generated} tokens "
+        f"generated ({out['serve']['prompt_tokens']} prompt tokens fed by decode) in "
+        f"{n_ticks} ticks, {serve_s:.3f} s; generated tokens/s "
+        f"{out['serve']['generated_tokens_per_s']:.2f}, all tokens/s "
+        f"{out['serve']['all_tokens_per_s']:.2f}")
+    log(f"moe (b) decode tick: median {tick_ms:.3f} ms (p10 / p90 "
+        f"{out['serve']['tick_ms_p10_p90'][0]:.3f} / {out['serve']['tick_ms_p10_p90'][1]:.3f});"
+        f" bound {bounds['tick_bound_ms']:.3f} ms (bytes) = every parameter in bf16 "
+        f"{bounds['params_ms']:.3f} + latent cache {bounds['cache_ms']:.4f}; peak device "
+        f"memory {peak:.2f} GiB; {smi}")
+    log(f"moe (b) device time of a tick (served ticks {LM_PROFILE_AT}-"
+        f"{LM_PROFILE_AT + LM_PROFILED_TICKS - 1}, profiled: median "
+        f"{out['serve']['profiled_tick_ms_median']:.3f} ms a tick): "
+        + ("not measured (the profiler recorded no kernel)" if busy_ms <= 0 else
+           f"{busy_ms:.3f} ms of kernels in {out['serve']['kernels_a_tick']:.1f} launches, "
+           f"host share {1 - busy_ms / tick_ms:.3f}; ms a tick by kernel "
+           + json.dumps(out["serve"]["top_kernels_ms_a_tick"])))
+    log(f"moe (b) latent cache {cache_bytes} bytes (ckv + krope, {full.n_layers} layers x "
+        f"{MOE_SLOTS} x {MOE_MAX_SEQ}) against {bounds['per_head_cache_bytes']} for a per-head "
+        f"K/V cache of the same shape ({bounds['per_head_cache_bytes'] / cache_bytes:.2f} x)")
+    log("moe (b) serve.* snapshot: " + json.dumps(out["serve"]["serve_stats"]))
+    if cache_bytes != bounds["latent_cache_bytes"]:
+        fail(f"moe (b): the latent cache holds {cache_bytes} bytes, not "
+             f"{bounds['latent_cache_bytes']}")
+    snap = out["serve"]["serve_stats"]
+    if (snap["serve.completed"], snap["serve.tokens"], snap["serve.ticks"]) != \
+            (MOE_REQUESTS, generated, n_ticks):
+        fail(f"moe (b): the serve.* counters disagree with the run: {snap}")
+    del eng, params, m16
+    free_card()
+
+    # (c) training at full width, depth 27 -> 4, float32 storage, bf16 compute
+    cfg_t = moe_config(full, n_layers=MOE_TRAIN_LAYERS)
+    model = build_model(cfg_t)
+    pipe = TokenPipeline(cfg_t.vocab_size, global_batch=MOE_TRAIN_BATCH,
+                         seq_len=MOE_TRAIN_SEQ, seed=0)
+    trainer = Trainer(model, pipe, TrainerConfig(
+        n_steps=MOE_TRAIN_STEPS, ckpt_every=MOE_TRAIN_STEPS, log_every=1,
+        ckpt_dir=tempfile.mkdtemp(prefix="chip_smoke_moe_")))
+    first, init_state = {}, trainer.init_state
+    saves = []
+
+    def init_and_loss_apart(seed):
+        state, first["init_s"] = synced_seconds(lambda: init_state(seed))
+        with torch.no_grad():
+            first["loss"], first["metrics"] = model.loss_fn(state[0], pipe.batch(0))
+        return state
+
+    trainer.init_state = init_and_loss_apart
+    # the run's one checkpoint (at its last step, 27 GB with the moments)
+    # is not written: phase 18 writes and times one
+    trainer.ckpt.save = lambda step, tree, blocking=False: saves.append(step)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    try:
+        (tparams, opt_state, steps), run_s = synced_seconds(lambda: trainer.run(
+            seed=0, callback=lambda s_, m_: walls.append(m_["wall_s"])))
+    finally:
+        shutil.rmtree(trainer.tcfg.ckpt_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_train = sum(p.numel() for p in tparams.parameters())
+    log_ = trainer.metrics_log
+    losses = [m_["loss_mean"] for m_ in log_]
+    aux = [m_["aux_loss"] for m_ in log_]
+    step_ms = [1e3 * (b_ - a_) for a_, b_ in zip([0.0] + walls[:-1], walls)]
+    steady = float(np.median(step_ms[1:]))
+    loss0 = float(first["loss"])
+    out["train"] = dict(
+        n_layers=MOE_TRAIN_LAYERS, n_params=n_train, batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
+        steps=steps, init_s=first["init_s"], run_s=run_s, losses=losses, aux_losses=aux,
+        step_ms=step_ms, step_ms_median_after_first=steady,
+        tokens_per_s=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (steady * 1e-3), peak_gib=peak,
+        first_loss_apart=loss0, first_loss_bit_equal=losses[0] == loss0)
+    log(f"moe (c) training {MOE_ARCH} at full width, {MOE_TRAIN_LAYERS} layers ({n_train} "
+        f"parameters, float32 storage, bf16 compute), batch {MOE_TRAIN_BATCH} x "
+        f"{MOE_TRAIN_SEQ}: losses {json.dumps(losses)}, aux losses {json.dumps(aux)}; ms a step "
+        f"{json.dumps([round(x, 1) for x in step_ms])} (median after the first {steady:.1f}: "
+        f"{out['train']['tokens_per_s']:.1f} tokens/s); peak {peak:.2f} GiB; {smi}")
+    log(f"moe (c) first loss {losses[0]!r} against loss_fn apart {loss0!r} (bit for bit "
+        f"{out['train']['first_loss_bit_equal']})")
+    if steps != MOE_TRAIN_STEPS or len(losses) != MOE_TRAIN_STEPS \
+            or not np.all(np.isfinite(losses)) or not all(np.isfinite(a) and a > 0 for a in aux):
+        fail(f"moe (c): {steps} steps, losses {losses}, aux losses {aux}")
+    if losses[0] != loss0:
+        fail(f"moe (c): the first step's loss {losses[0]!r} is not loss_fn's {loss0!r}")
+    if saves != [MOE_TRAIN_STEPS]:
+        fail(f"moe (c): checkpoint saves at {saves}")
+    del tparams, opt_state, trainer, model, first
+    free_card()
+
+    # (d) the reduced deepseek_v3_671b: sigmoid_bias router, q_lora and MTP
+    v3 = get_reduced_config(MOE_V3_ARCH)
+    mv3 = build_model(v3)
+    p3 = mv3.init(torch.Generator(dev).manual_seed(0))
+    opt = step_mod.opt_config_for(v3)
+    batch = {"tokens": torch.randint(0, v3.vocab_size, (MOE_V3_BATCH, 65), generator=gen,
+                                     device=dev)}
+    p3, state3, metrics3 = step_mod.make_train_step(mv3, opt)(
+        p3, step_mod.make_opt_init(mv3, opt)(p3), batch)
+    metrics3 = {k: float(v) for k, v in metrics3.items()}
+    eng = ServeEngine(mv3, batch_slots=4, max_seq=64, params=p3)
+    for r in range(6):
+        eng.submit(Request(rid=r, prompt=[1 + r, 2, 3, 4], max_new_tokens=8))
+    v3_done = eng.run()
+    # and its float32 loss on the card against the CPU's, the same parameters
+    c32 = moe_config(v3, compute_dtype="float32")
+    cpu_params = copy.deepcopy(p3).cpu()
+    with torch.no_grad():
+        l_card = float(build_model(c32).loss_fn(p3, batch)[0])
+        l_cpu = float(build_model(c32, device="cpu").loss_fn(
+            cpu_params, {"tokens": batch["tokens"].cpu()})[0])
+    out["v3"] = dict(metrics=metrics3, served=len(v3_done),
+                     tokens=sum(len(r.generated) for r in v3_done), f32_loss_card=l_card,
+                     f32_loss_cpu=l_cpu)
+    log(f"moe (d) reduced {MOE_V3_ARCH} (sigmoid_bias router, norm_topk_prob, q_lora "
+        f"{v3.mla.q_lora_rank}, MTP; bf16 parameters, bf16 factored moments, grad_accum "
+        f"{v3.grad_accum}): one train step, metrics {json.dumps(metrics3)}; ServeEngine served "
+        f"{len(v3_done)} requests ({out['v3']['tokens']} tokens); float32 loss card "
+        f"{l_card!r} against CPU {l_cpu!r} (rtol 1e-4)")
+    if not {"mtp_loss", "aux_loss", "lm_loss"} <= set(metrics3) \
+            or not all(np.isfinite(v) for v in metrics3.values()):
+        fail(f"moe (d): the v3 train step's metrics {metrics3}")
+    if len(v3_done) != 6 or any(len(r.generated) != 8 or not all(
+            0 <= t < v3.vocab_size for t in r.generated) for r in v3_done):
+        fail("moe (d): the v3 ServeEngine run did not complete inside the vocabulary")
+    if abs(l_card - l_cpu) > 1e-4 * abs(l_cpu):
+        fail(f"moe (d): the float32 v3 loss on the card {l_card} is not the CPU's {l_cpu}")
+    del p3, state3, eng, mv3, cpu_params
+    free_card()
+
+    # (e) tie order on the card
+    out["ties"] = check_moe_ties(gen)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("moe (phase 19): " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-iter", type=int, default=1000,
@@ -3328,6 +3737,9 @@ def main() -> None:
     ap.add_argument("--train-only", action="store_true",
                     help="phases 1, 2 and 18 (the LM training path, phi4_mini_3p8b at full "
                          "width), for iterating on it; no kernels line")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="phases 1, 2 and 19 (the MoE family, deepseek_v2_lite_16b at full "
+                         "width), for iterating on it; no kernels line")
     args = ap.parse_args()
 
     t_run = time.perf_counter()
@@ -3336,8 +3748,8 @@ def main() -> None:
     from repro_torch.kernels import ops
     build_logs = phase_build()
 
-    if args.lm_only or args.train_only:
-        (phase_lm if args.lm_only else phase_train)(smi)
+    if args.lm_only or args.train_only or args.moe_only:
+        (phase_lm if args.lm_only else phase_train if args.train_only else phase_moe)(smi)
         log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3365,11 +3777,12 @@ def main() -> None:
     # phase 16 first: late in a long run, torch.profiler on the card's
     # machine has recorded no kernel event at all (phase 14's device times)
     contracts = phase_contracts(smi, build_logs)
-    # phases 17 and 18 next, while the card is empty: their models hold
-    # 27.6 GB and 15.3 GB (with its optimizer, gradients and activations
-    # ~55 GiB)
+    # phases 17, 18 and 19 next, while the card is empty: their models hold
+    # 27.6 GB, 15.3 GB (with its optimizer, gradients and activations
+    # ~55 GiB) and 62.8 GB
     lm = phase_lm(smi)
     phase_train(smi)
+    phase_moe(smi)
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
 

@@ -4,9 +4,10 @@ t-SNE has no weights.  What one package's run hands the other is the
 fitted sparse input-similarity graph, the descent state (whole, or split
 over a device mesh by :func:`shard_state`) and a fitted random-projection
 forest.  The LM substrate does have weights: :func:`lm_params_from_numpy`
-carries a dense decoder's parameter tree across (and
+carries a decoder's parameter tree across (dense or MoE; and
 :func:`lm_params_to_numpy` back), :func:`adamw_state_from_numpy` its
-optimizer state and :func:`kv_cache_from_numpy` its stacked KV cache.
+optimizer state and :func:`kv_cache_from_numpy` its stacked KV or latent
+cache.
 Everything crosses as numpy arrays (never framework objects), so this module needs nothing of
 the JAX package.  The LM functions import the LM package when called: the
 t-SNE half does not load it.
@@ -22,11 +23,11 @@ from repro_torch.core.similarity import ell_row_lengths
 from repro_torch.core.tsne import NeighborGraph, TsneState
 from repro_torch.device import resolve_device
 from repro_torch.neighbors.rp_forest import RPForestIndex
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves_with_path, tree_map, tree_unflatten_like
 
 if TYPE_CHECKING:
     from repro_torch.configs.base import ArchConfig
-    from repro_torch.models.model import DenseLM
+    from repro_torch.models.model import DecoderLM
     from repro_torch.train.optimizer import AdamWState
 
 
@@ -100,41 +101,57 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> DenseLM:
-    """A dense decoder's parameters (:class:`~repro_torch.models.model.DenseLM`)
+def _leaf_dtypes(cfg: ArchConfig, tree):
+    """Each leaf's parameter dtype as the reference's init gives it:
+    ``cfg.param_dtype``, except the MoE router's ``w`` and ``bias``, which
+    are float32 whatever ``param_dtype`` is."""
+    pd = cfg.pdtype()
+    return tree_unflatten_like(tree, [torch.float32 if "router" in path else pd
+                                      for path, _ in tree_leaves_with_path(tree)])
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> DecoderLM:
+    """A decoder's parameters (:class:`~repro_torch.models.model.DecoderLM`)
     from the reference's parameter tree as numpy arrays
-    (``jax.tree.map(np.asarray, params)``), cast to ``cfg.param_dtype``.
+    (``jax.tree.map(np.asarray, params)``), each leaf cast to its
+    reference dtype (``cfg.param_dtype``; the MoE router float32).
 
     Weights keep the reference's ``[in, out]`` layout (the port computes
-    ``x @ w``, as the reference does), so nothing is transposed.
-    ``layers`` may be the scanned layout (a dict whose leaves are stacked
-    ``[L, ...]``, ``scan_layers=True``) or a list of block dicts."""
-    from repro_torch.models.model import DenseLM
+    ``x @ w``, as the reference does), so nothing is transposed.  Each
+    layer stack (``layers``, and the MoE family's ``dense_layers``) may be
+    the scanned layout (a dict whose leaves are stacked ``[L, ...]``,
+    ``scan_layers=True``) or a list of block dicts."""
+    from repro_torch.models.model import DecoderLM, layer_stacks
     dev = resolve_device(device)
-    layers = tree["layers"]
-    if isinstance(layers, dict):
-        layers = [tree_map(lambda a, i=i: np.asarray(a)[i], layers)
-                  for i in range(cfg.n_layers)]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers in the tree, {cfg.n_layers} in {cfg.name}")
-    pd = cfg.pdtype()
-    return DenseLM(cfg, tree_map(lambda a: _tensor(a, dev).to(pd),
-                                 {**tree, "layers": list(layers)}))
+    tree = dict(tree)
+    for name, depth in layer_stacks(cfg).items():
+        layers = tree[name]
+        if isinstance(layers, dict):
+            layers = [tree_map(lambda a, i=i: np.asarray(a)[i], layers) for i in range(depth)]
+        if len(layers) != depth:
+            raise ValueError(f"{len(layers)} {name} in the tree, {depth} in {cfg.name}")
+        tree[name] = list(layers)
+    return DecoderLM(cfg, tree_map(lambda a, dt: _tensor(a, dev).to(dt), tree,
+                                   _leaf_dtypes(cfg, tree)))
 
 
-def lm_params_to_numpy(params: DenseLM, stacked: bool = True) -> dict:
+def lm_params_to_numpy(params: DecoderLM, stacked: bool = True) -> dict:
     """The reference's parameter tree (``jax.tree.map(np.asarray, params)``'s
-    form) from a :class:`~repro_torch.models.model.DenseLM`: ``layers`` a
-    block dict of stacked ``[L, ...]`` arrays (``scan_layers=True``), or the
-    list of block dicts.  Copied to the host, then stacked there; bfloat16
-    parameters come back as float32 arrays (exact: numpy has no bfloat16)."""
+    form) from a :class:`~repro_torch.models.model.DecoderLM`: each layer
+    stack a block dict of stacked ``[L, ...]`` arrays
+    (``scan_layers=True``), or the list of block dicts.  Copied to the
+    host, then stacked there; bfloat16 parameters come back as float32
+    arrays (exact: numpy has no bfloat16)."""
+    from repro_torch.models.model import layer_stacks
+
     def host(t: torch.Tensor) -> np.ndarray:
         t = t.detach().to("cpu", copy=True)
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     tree = tree_map(host, params.tree())
     if stacked:
-        tree["layers"] = tree_map(lambda *a: np.stack(a), *tree["layers"])
+        for name in layer_stacks(params.cfg):
+            tree[name] = tree_map(lambda *a: np.stack(a), *tree[name])
     return tree
 
 
@@ -157,8 +174,16 @@ def adamw_state_from_numpy(cfg: ArchConfig, state, *, device=None) -> AdamWState
 
 
 def kv_cache_from_numpy(cache, *, device=None) -> dict:
-    """The stacked KV cache ``{k, v}`` ([L, B, S, Hkv, dh] each, the
-    reference's ``init_cache``/``decode_step`` layout) on ``device``, in
-    its own dtype."""
+    """A stacked cache as ``init_cache``/``decode_step`` lay it out, on
+    ``device`` in its own dtypes: the dense family's ``{k, v}`` ([L, B, S,
+    Hkv, dh] each), or the MoE family's ``{"dense": {ckv, krope} or None,
+    "moe": {ckv, krope}}`` of MLA latents ([L, B, S, r] and [L, B, S,
+    dr])."""
     dev = resolve_device(device)
-    return {name: _tensor(cache[name], dev) for name in ("k", "v")}
+
+    def one(c):
+        if isinstance(c, dict):
+            return {name: one(part) for name, part in c.items()}
+        return None if c is None else _tensor(c, dev)
+
+    return one(cache)

@@ -3,9 +3,10 @@
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --arch deepseek_7b --requests 8
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu --arch deepseek_v2_lite_16b
 
 Reduced configs, as the reference's; on ``--device`` (default cuda).  The
-dense family is ported; the other text families raise
+dense and MoE families are ported; the other text families raise
 ``NotImplementedError`` (ROADMAP.md §1).
 """
 from __future__ import annotations

@@ -2,9 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_7b --requests 6
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch deepseek_7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch deepseek_v2_lite_16b
 
-Runs on cuda unless ``--device cpu`` is given.  The dense family is
-ported; the other families raise ``NotImplementedError`` (ROADMAP.md §1).
+Runs on cuda unless ``--device cpu`` is given.  The dense and MoE families
+are ported; the other families raise ``NotImplementedError`` (ROADMAP.md
+§1).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Top-level model API: ``build_model(cfg)`` -> init / loss / prefill /
-decode: port of ``repro/models/model.py`` for the dense family.
+decode: port of ``repro/models/model.py`` for the dense and MoE families.
 
     model = build_model(get_config("deepseek_7b"))          # on cuda
     params = model.init(torch.Generator("cuda").manual_seed(0))
@@ -8,18 +8,29 @@ decode: port of ``repro/models/model.py`` for the dense family.
     cache = model.init_cache(batch, seq)
     logits, cache = model.decode_step(params, cache, token, pos)
 
+The families:
+
+* ``dense``: the scanned GQA decoder (deepseek_7b, phi4_mini_3p8b,
+  minitron_8b, llama3_405b);
+* ``moe``: ``first_dense_layers`` dense blocks, then MoE blocks, both with
+  MLA attention (deepseek_v2_lite_16b, deepseek_v3_671b), and DeepSeek-V3's
+  depth-1 multi-token-prediction module when ``cfg.mtp``.  ``loss_fn``
+  adds ``aux_loss_weight`` times the summed aux load-balance loss and
+  ``mtp_loss_weight`` times the MTP loss.  As in the reference, the MTP
+  term belongs to this family alone: a dense config with ``mtp=True``
+  trains on the plain LM loss.
+
 ``build_model`` returns the reference's namespace (``cfg``, ``init``,
 ``loss_fn``, ``prefill``, ``decode_step``, ``init_cache``, plus ``device``),
 so ``serve.engine.ServeEngine`` and ``train.trainer.Trainer`` read the same
-in both packages.  ``params`` is a :class:`DenseLM`: an ``nn.Module``
+in both packages.  ``params`` is a :class:`DecoderLM`: an ``nn.Module``
 holding the reference's parameter tree as ``nn.Parameter`` objects in
-``param_dtype``.  Every call casts the float parameters to
-``compute_dtype`` (as the reference does) and embeds from the cast table;
-``prefill`` and ``decode_step`` run under ``torch.no_grad``, ``loss_fn``
-differentiates back through the cast to the stored parameters.
-``_mtp_loss`` comes with the MoE family, ``input_specs`` with the dry-run
-launcher; the other families raise ``NotImplementedError`` (ROADMAP.md §1
-item 2).
+``param_dtype`` (the MoE router in float32).  Every call casts the float
+parameters to ``compute_dtype`` (as the reference does) and embeds from
+the cast table; ``prefill`` and ``decode_step`` run under
+``torch.no_grad``, ``loss_fn`` differentiates back through the cast to the
+stored parameters.  ``input_specs`` comes with the dry-run launcher; the
+other families raise ``NotImplementedError`` (ROADMAP.md §1 item 2).
 """
 from __future__ import annotations
 
@@ -30,12 +41,13 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.layers import init_dense, rms_norm
-from repro_torch.models.transformer import init_stack, stack_forward
+from repro_torch.models.mla import init_mla_cache
+from repro_torch.models.transformer import block_forward, init_block, init_stack, stack_forward
 from repro_torch.tree import Stacked, tree_map
 
 NOT_PORTED = {
-    "moe": "ROADMAP.md §1 item 2, slice 3 (the other families: mla, moe)",
     "ssm": "ROADMAP.md §1 item 2, slice 3 (the other families: rwkv, ssm)",
     "hybrid": "ROADMAP.md §1 item 2, slice 3 (the other families: ssm)",
     "audio": "ROADMAP.md §1 item 2, slice 3 (the other families: audio cross-attention)",
@@ -43,70 +55,95 @@ NOT_PORTED = {
 }
 
 
-class _Block(nn.Module):
-    """One layer's parameters, under the reference's names."""
+def layer_stacks(cfg: ArchConfig) -> dict[str, int]:
+    """The parameter tree's layer stacks and their depths: ``layers`` for
+    the dense family; ``dense_layers`` (when ``first_dense_layers``) and
+    ``layers`` (the MoE blocks) for the MoE family."""
+    if cfg.family != "moe":
+        return {"layers": cfg.n_layers}
+    nd = cfg.moe.first_dense_layers
+    return {**({"dense_layers": nd} if nd else {}), "layers": cfg.n_layers - nd}
+
+
+class _Tree(nn.Module):
+    """A dict of tensors and dicts held as parameters and submodules under
+    the reference's names, in sorted order whatever the dict's (so a module
+    restored from a checkpoint lists its parameters as a fresh one does);
+    ``node[name]`` reads either."""
 
     def __init__(self, tree: dict):
         super().__init__()
-        self.ln1 = nn.Parameter(tree["ln1"])
-        self.attn = nn.ParameterDict(tree["attn"])
-        self.ln2 = nn.Parameter(tree["ln2"])
-        self.mlp = nn.ParameterDict(tree["mlp"])
+        for name in sorted(tree):
+            value = tree[name]
+            if isinstance(value, dict):
+                self.add_module(name, _Tree(value))
+            else:
+                self.register_parameter(name, nn.Parameter(value))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
 
     def tree(self) -> dict:
-        return {"ln1": self.ln1, "attn": dict(self.attn), "ln2": self.ln2,
-                "mlp": dict(self.mlp)}
+        return {**{n: p for n, p in self.named_parameters(recurse=False)},
+                **{n: m.tree() for n, m in self.named_children()}}
 
 
-class DenseLM(nn.Module):
-    """The dense decoder's parameters as a module.  Built from the
-    reference's tree (``embed.embedding [V, D]``, ``final_ln [D]``,
-    ``unembed [D, V]`` unless tied, ``layers`` a list of block dicts with
-    ``[in, out]`` weights, or the scanned layout: one block dict whose
-    leaves are ``[L, ...]`` tensors or :class:`~repro_torch.tree.Stacked`);
-    :meth:`tree` gives it back with a list of layers, :meth:`reference_tree`
-    in the reference's own layout.  Not called itself: ``build_model``'s
-    functions take it as ``params``.  The parameters are frozen
-    (``requires_grad=False``) until a caller trains them:
-    ``params.requires_grad_(True)``, as ``train.step``'s step does."""
+class DecoderLM(nn.Module):
+    """A decoder's parameters as a module.  Built from the reference's tree
+    (``embed.embedding [V, D]``, ``final_ln [D]``, ``unembed [D, V]``
+    unless tied, each of :func:`layer_stacks`'s stacks a list of block
+    dicts with ``[in, out]`` weights or the scanned layout: one block dict
+    whose leaves are ``[L, ...]`` tensors or
+    :class:`~repro_torch.tree.Stacked`; and the MoE family's ``mtp`` module
+    when ``cfg.mtp``); :meth:`tree` gives it back with lists of layers,
+    :meth:`reference_tree` in the reference's own layout.  Not called
+    itself: ``build_model``'s functions take it as ``params``.  The
+    parameters are frozen (``requires_grad=False``) until a caller trains
+    them: ``params.requires_grad_(True)``, as ``train.step``'s step does."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
         self.cfg = cfg
-        layers = tree["layers"]
-        if isinstance(layers, dict):
-            layers = [tree_map(lambda a, i=i: a[i], layers,
-                               is_leaf=lambda x: isinstance(x, Stacked))
-                      for i in range(cfg.n_layers)]
         self.embedding = nn.Parameter(tree["embed"]["embedding"])
         self.final_ln = nn.Parameter(tree["final_ln"])
         self.unembed = None if cfg.tie_embeddings else nn.Parameter(tree["unembed"])
-        self.layers = nn.ModuleList(_Block(layer) for layer in layers)
+        for name, depth in layer_stacks(cfg).items():
+            layers = tree[name]
+            if isinstance(layers, dict):
+                layers = [tree_map(lambda a, i=i: a[i], layers,
+                                   is_leaf=lambda x: isinstance(x, Stacked))
+                          for i in range(depth)]
+            self.add_module(name, nn.ModuleList(_Tree(layer) for layer in layers))
+        self.mtp = _Tree(tree["mtp"]) if cfg.family == "moe" and cfg.mtp else None
         self.requires_grad_(False)
 
     def tree(self) -> dict:
-        out = {"embed": {"embedding": self.embedding}, "final_ln": self.final_ln,
-               "layers": [layer.tree() for layer in self.layers]}
+        out = {"embed": {"embedding": self.embedding}, "final_ln": self.final_ln}
+        for name in layer_stacks(self.cfg):
+            out[name] = [layer.tree() for layer in getattr(self, name)]
         if self.unembed is not None:
             out["unembed"] = self.unembed
+        if self.mtp is not None:
+            out["mtp"] = self.mtp.tree()
         return out
 
     def reference_tree(self) -> dict:
         """The tree in the reference's layout: with ``cfg.scan_layers``,
-        ``layers`` is one block dict whose leaves are ``Stacked`` (the L
-        per-layer parameters of each stacked leaf); else the list.  The
-        optimizer's state and the checkpoints follow this layout."""
+        each layer stack is one block dict whose leaves are ``Stacked``
+        (the L per-layer parameters of each stacked leaf); else the list.
+        The optimizer's state and the checkpoints follow this layout."""
         out = self.tree()
         if self.cfg.scan_layers:
-            out["layers"] = tree_map(lambda *ps: Stacked(ps), *out["layers"])
+            for name in layer_stacks(self.cfg):
+                out[name] = tree_map(lambda *ps: Stacked(ps), *out[name])
         return out
 
     # a checkpoint saves the reference's layout (Stacked leaves are stacked
     # on the host) and restores a new module from it
     checkpoint_tree = reference_tree
 
-    def from_checkpoint_tree(self, tree: dict) -> DenseLM:
-        return DenseLM(self.cfg, tree)
+    def from_checkpoint_tree(self, tree: dict) -> DecoderLM:
+        return DecoderLM(self.cfg, tree)
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -126,31 +163,44 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
-    """The dense family's training and serving functions on ``device``
-    (default cuda)."""
-    if cfg.family != "dense":
+    """The dense or MoE family's training and serving functions on
+    ``device`` (default cuda)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: {NOT_PORTED[cfg.family]}")
     dev = resolve_device(device)
     dtype = cfg.cdtype()
     pdtype = cfg.pdtype()
+    moe = cfg.family == "moe"
 
-    def init(gen: torch.Generator) -> DenseLM:
+    def init(gen: torch.Generator) -> DecoderLM:
         """Fresh parameters drawn from ``gen``, which must live on the
-        model's device: embedding, unembed, then each layer in order."""
+        model's device: embedding, unembed, then each stack's layers in
+        order, then the MTP module."""
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
+        d = cfg.d_model
         tree = {
-            "embed": {"embedding": init_dense(gen, (cfg.vocab_size, cfg.d_model), pdtype,
-                                              scale=1.0)},
-            "final_ln": torch.zeros((cfg.d_model,), dtype=pdtype, device=gen.device),
+            "embed": {"embedding": init_dense(gen, (cfg.vocab_size, d), pdtype, scale=1.0)},
+            "final_ln": torch.zeros((d,), dtype=pdtype, device=gen.device),
         }
         if not cfg.tie_embeddings:
-            tree["unembed"] = init_dense(gen, (cfg.d_model, cfg.vocab_size), pdtype)
-        tree["layers"] = init_stack(gen, cfg, pdtype)
-        return DenseLM(cfg, tree)
+            tree["unembed"] = init_dense(gen, (d, cfg.vocab_size), pdtype)
+        for name, depth in layer_stacks(cfg).items():
+            dense = name == "dense_layers" or not moe
+            tree[name] = init_stack(gen, cfg, depth, pdtype, kind="dense" if dense else "moe",
+                                    d_ff=cfg.moe.dense_d_ff if moe and dense else None)
+        if moe and cfg.mtp:
+            tree["mtp"] = {
+                "proj": init_dense(gen, (2 * d, d), pdtype),
+                "ln_h": torch.zeros((d,), dtype=pdtype, device=gen.device),
+                "ln_e": torch.zeros((d,), dtype=pdtype, device=gen.device),
+                "block": init_block(gen, cfg, pdtype, kind="moe"),
+                "final_ln": torch.zeros((d,), dtype=pdtype, device=gen.device),
+            }
+        return DecoderLM(cfg, tree)
 
-    def _cast(params: DenseLM) -> dict:
+    def _cast(params: DecoderLM) -> dict:
         """The float parameters in the compute dtype (storage stays
         param_dtype): a copy each call unless the two dtypes are equal.
         Differentiable: the copy's gradient comes back to the parameter in
@@ -169,49 +219,90 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
     def _tokens(t) -> torch.Tensor:
         return torch.as_tensor(t, device=dev).long()
 
-    def loss_fn(params: DenseLM, batch: dict):
+    def _backbone(p: dict, x: torch.Tensor, positions: torch.Tensor, *, cache=None,
+                  cache_pos=None):
+        """(hidden, the MoE blocks' summed aux loss)."""
+        if not moe:
+            return stack_forward(p["layers"], x, positions, cfg, cache=cache,
+                                 cache_pos=cache_pos)
+        if "dense_layers" in p:
+            x, _ = stack_forward(p["dense_layers"], x, positions, cfg, kind="dense",
+                                 cache=None if cache is None else cache["dense"],
+                                 cache_pos=cache_pos)
+        return stack_forward(p["layers"], x, positions, cfg, kind="moe",
+                             cache=None if cache is None else cache["moe"], cache_pos=cache_pos)
+
+    def _mtp_loss(p: dict, h: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """DeepSeek-V3 depth-1 MTP: predict t + 2 from (h_t, emb_{t+1}),
+        through the top-level ``final_ln`` and head (``mtp.final_ln`` is a
+        parameter that nothing reads, as in the reference)."""
+        mp = p["mtp"]
+        inputs, nxt, tgt = tokens[:, :-2], tokens[:, 1:-1], tokens[:, 2:]
+        h = h[:, : inputs.shape[1]]
+        z = torch.cat([rms_norm(h, mp["ln_h"], cfg.norm_eps),
+                       rms_norm(_embed(p, nxt), mp["ln_e"], cfg.norm_eps)], dim=-1) @ mp["proj"]
+        z, _ = block_forward(mp["block"], z, torch.arange(z.shape[1], device=dev), cfg,
+                             kind="moe")
+        return _cross_entropy(_head(p, z), tgt)
+
+    def loss_fn(params: DecoderLM, batch: dict):
         """(loss, metrics): the next-token cross-entropy of ``batch["tokens"]``
-        [B, S + 1] over S positions; metrics ``lm_loss`` and ``loss``."""
-        if cfg.mtp:
-            raise NotImplementedError(
-                "the MTP loss runs the MoE block: ROADMAP.md §1 item 2, slice 3 (the "
-                "other families: moe)")
+        [B, S + 1] over S positions; metrics ``lm_loss`` and ``loss``, and
+        for the MoE family ``aux_loss`` (and ``mtp_loss`` when ``cfg.mtp``)."""
         p = _cast(params)
         tokens = _tokens(batch["tokens"])
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         x = _embed(p, inputs)
         positions = torch.arange(inputs.shape[1], device=dev)
-        h = stack_forward(p["layers"], x, positions, cfg)
+        h, aux = _backbone(p, x, positions)
         loss = _cross_entropy(_head(p, h), labels)
-        return loss, {"lm_loss": loss, "loss": loss}
+        metrics = {"lm_loss": loss}
+        if moe:
+            metrics["aux_loss"] = aux
+            loss = loss + cfg.moe.aux_loss_weight * aux
+            if cfg.mtp:
+                mtp_loss = _mtp_loss(p, h, tokens)
+                metrics["mtp_loss"] = mtp_loss
+                loss = loss + cfg.mtp_loss_weight * mtp_loss
+        metrics["loss"] = loss
+        return loss, metrics
 
     @torch.no_grad()
-    def prefill(params: DenseLM, batch: dict) -> torch.Tensor:
+    def prefill(params: DecoderLM, batch: dict) -> torch.Tensor:
         """Full-context forward; returns the last position's logits [B, V]."""
         p = _cast(params)
         tokens = _tokens(batch["tokens"])
-        s = tokens.shape[1]
         x = _embed(p, tokens)
-        positions = torch.arange(s, device=dev)
-        h = stack_forward(p["layers"], x, positions, cfg)
+        h, _ = _backbone(p, x, torch.arange(tokens.shape[1], device=dev))
         return _head(p, h[:, -1:, :])[:, 0]
 
     @torch.no_grad()
-    def decode_step(params: DenseLM, cache: dict, token, pos):
-        """One token with a filled KV cache; token [B], pos [B] (host arrays
+    def decode_step(params: DecoderLM, cache: dict, token, pos):
+        """One token with a filled cache; token [B], pos [B] (host arrays
         or tensors).  Writes the cache in place; returns (logits, cache)."""
         p = _cast(params)
         token, pos = _tokens(token), _tokens(pos)
         x = _embed(p, token[:, None])
-        h = stack_forward(p["layers"], x, pos[:, None], cfg, cache=cache, cache_pos=pos)
+        h, _ = _backbone(p, x, pos[:, None], cache=cache, cache_pos=pos)
         return _head(p, h)[:, 0], cache
 
     def init_cache(batch: int, seq: int) -> dict:
-        """The stacked cache ``{k, v}``: [L, batch, seq, Hkv, dh] zeros in
-        the compute dtype."""
-        shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        """Zeros in the compute dtype: the stacked per-layer cache, ``{k, v}``
+        ([L, batch, seq, Hkv, dh]) or MLA's latent ``{ckv [L, batch, seq,
+        r], krope [L, batch, seq, dr]}``; for the MoE family ``{"dense":
+        the first dense layers' or None, "moe": the MoE layers'}``."""
+        one = init_mla_cache if cfg.attention == "mla" else init_kv_cache
+        layer = one(cfg, batch, seq, dtype, device="meta")
+
+        def stacked(depth: int) -> dict:
+            return {k: torch.zeros((depth, *v.shape), dtype=dtype, device=dev)
+                    for k, v in layer.items()}
+
+        if not moe:
+            return stacked(cfg.n_layers)
+        stacks = layer_stacks(cfg)
+        return {"dense": stacked(stacks["dense_layers"]) if "dense_layers" in stacks else None,
+                "moe": stacked(stacks["layers"])}
 
     return SimpleNamespace(cfg=cfg, device=dev, init=init, loss_fn=loss_fn, prefill=prefill,
                            decode_step=decode_step, init_cache=init_cache)

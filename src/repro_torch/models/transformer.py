@@ -1,12 +1,14 @@
-"""Layer stacks: port of ``repro/models/transformer.py`` for the dense block.
+"""Layer stacks: port of ``repro/models/transformer.py`` for the dense and
+MoE blocks.
 
 The reference scans a stacked ``[L, ...]`` parameter pytree with optional
 remat; the port keeps one parameter dict a layer and loops over them in
 Python.  ``cfg.remat`` wraps each block in
 ``torch.utils.checkpoint.checkpoint`` when gradients are on (the
 reference's ``jax.checkpoint`` of the scan body): the backward keeps each
-block's input and recomputes the rest.  The MoE, MLA, enc-dec and hybrid
-blocks come with the other families (ROADMAP.md §1 item 2, slice 3).
+block's input and recomputes the rest, the MoE block's aux loss among its
+outputs.  The enc-dec and hybrid blocks come with the other families
+(ROADMAP.md §1 item 2, slice 3).
 """
 from __future__ import annotations
 
@@ -16,51 +18,72 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention_block, init_attention
 from repro_torch.models.layers import init_dense, rms_norm, swiglu
+from repro_torch.models.mla import init_mla, mla_block
+from repro_torch.models.moe import init_moe, moe_block
 
 
-def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> dict:
-    """One dense block's parameters, the reference's dict: ln1, attn {wq,
-    wk, wv, wo}, ln2, mlp {w1, w3, w2}; the norm scales start at zero."""
-    d, ff = cfg.d_model, cfg.d_ff
-    return {
-        "ln1": torch.zeros((d,), dtype=dtype, device=gen.device),
-        "attn": init_attention(gen, cfg, dtype),
-        "ln2": torch.zeros((d,), dtype=dtype, device=gen.device),
-        "mlp": {
+def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, *,
+               kind: str = "dense", d_ff: int | None = None) -> dict:
+    """One block's parameters, the reference's dict: ln1, attn (GQA {wq,
+    wk, wv, wo}, or MLA's when ``cfg.attention == "mla"``), ln2, and mlp:
+    a SwiGLU {w1, w3, w2} of width ``d_ff`` (default ``cfg.d_ff``) for
+    ``kind="dense"``, the MoE's dict for ``kind="moe"``.  The norm scales
+    start at zero."""
+    d = cfg.d_model
+    p = {"ln1": torch.zeros((d,), dtype=dtype, device=gen.device),
+         "attn": (init_mla if cfg.attention == "mla" else init_attention)(gen, cfg, dtype),
+         "ln2": torch.zeros((d,), dtype=dtype, device=gen.device)}
+    if kind == "moe":
+        p["mlp"] = init_moe(gen, cfg, dtype)
+    else:
+        ff = d_ff or cfg.d_ff
+        p["mlp"] = {
             "w1": init_dense(gen, (d, ff), dtype),
             "w3": init_dense(gen, (d, ff), dtype),
             "w2": init_dense(gen, (ff, d), dtype, scale=ff**-0.5 / (2 * cfg.n_layers) ** 0.5),
-        },
-    }
+        }
+    return p
 
 
 def block_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, *,
-                  cache=None, cache_pos=None) -> torch.Tensor:
-    """One dense block: causal self-attention with RoPE, then SwiGLU."""
+                  kind: str = "dense", cache=None, cache_pos=None):
+    """One block: causal self-attention with RoPE (GQA or MLA), then the
+    SwiGLU or the MoE.  Returns (x, aux_loss): the MoE's float32 aux loss,
+    None for a dense block."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    attn_out, _ = attention_block(params["attn"], h, positions, cfg,
-                                  cache=cache, cache_pos=cache_pos)
+    attend = mla_block if cfg.attention == "mla" else attention_block
+    attn_out, _ = attend(params["attn"], h, positions, cfg, cache=cache, cache_pos=cache_pos)
     x = x + attn_out
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    return x + swiglu(h, **params["mlp"])
+    if kind == "moe":
+        mlp_out, aux = moe_block(params["mlp"], h, cfg)
+        return x + mlp_out, aux["aux_loss"]
+    return x + swiglu(h, **params["mlp"]), None
 
 
-def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> list[dict]:
-    return [init_block(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+def init_stack(gen: torch.Generator, cfg: ArchConfig, n_layers: int, dtype: torch.dtype, *,
+               kind: str = "dense", d_ff: int | None = None) -> list[dict]:
+    return [init_block(gen, cfg, dtype, kind=kind, d_ff=d_ff) for _ in range(n_layers)]
 
 
 def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, *,
-                  cache=None, cache_pos=None) -> torch.Tensor:
-    """Loop over the block dicts.  ``cache`` is the stacked ``{k, v}`` of
-    ``[L, B, S, Hkv, dh]`` tensors (layer i reads and writes its view
-    ``cache["k"][i]`` in place), or None.  Each block is rematerialised
-    in the backward when ``cfg.remat`` and gradients are on (serving runs
-    under ``no_grad``, so never there)."""
-    if cache is None and cfg.remat and torch.is_grad_enabled():
-        for layer in params:
-            x = checkpoint(block_forward, layer, x, positions, cfg, use_reentrant=False)
-        return x
+                  kind: str = "dense", cache=None, cache_pos=None):
+    """Loop over the block dicts; returns (x, the blocks' summed aux loss,
+    a float32 scalar).  ``cache`` is the stacked cache, a dict of
+    ``[L, B, S, ...]`` tensors (``{k, v}``, or MLA's ``{ckv, krope}``):
+    layer i reads and writes its views ``cache[name][i]`` in place; or
+    None.  Each block is rematerialised in the backward when ``cfg.remat``
+    and gradients are on (serving runs under ``no_grad``, so never there)."""
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cache is None and cfg.remat and torch.is_grad_enabled()
     for i, layer in enumerate(params):
-        layer_cache = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
-        x = block_forward(layer, x, positions, cfg, cache=layer_cache, cache_pos=cache_pos)
-    return x
+        if remat:
+            x, aux = checkpoint(block_forward, layer, x, positions, cfg, kind=kind,
+                                use_reentrant=False)
+        else:
+            layer_cache = None if cache is None else {n: c[i] for n, c in cache.items()}
+            x, aux = block_forward(layer, x, positions, cfg, kind=kind, cache=layer_cache,
+                                   cache_pos=cache_pos)
+        if aux is not None:
+            aux_sum = aux_sum + aux
+    return x, aux_sum

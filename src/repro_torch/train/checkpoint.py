@@ -5,7 +5,7 @@ A state is a tree of tuples, NamedTuples, dicts and lists (the reference's
 pytree) whose leaves are tensors, ints and numpy arrays: a descent state
 (:class:`repro_torch.core.tsne.TsneState`), or an LM trainer's
 ``(params, AdamWState)``.  An object with a ``checkpoint_tree()`` method
-(a :class:`~repro_torch.models.model.DenseLM`) is saved as that tree and
+(a :class:`~repro_torch.models.model.DecoderLM`) is saved as that tree and
 restored through its ``from_checkpoint_tree(tree)``; a
 :class:`~repro_torch.tree.Stacked` leaf (one scanned leaf's per-layer
 tensors) is copied to the host layer by layer and stacked there, never on

@@ -5,8 +5,8 @@ The router bias is a *non-trainable* parameter adjusted from observed
 expert load: overloaded experts get their selection bias decreased,
 underloaded ones increased.  Applied between optimizer steps for
 ``router='sigmoid_bias'`` archs (the bias enters top-k selection only, so
-this is gradient-free).  The MoE family itself comes with ROADMAP.md §1
-item 2, slice 3.
+this is gradient-free).  It works on a tree, such as a
+``DecoderLM.reference_tree()`` of the MoE family (``models/moe.py``).
 """
 from __future__ import annotations
 

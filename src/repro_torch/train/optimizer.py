@@ -7,7 +7,7 @@
   full tensor).
 
 The state follows the reference's tree layout, not the module's: for a
-:class:`~repro_torch.models.model.DenseLM` with ``scan_layers`` its
+:class:`~repro_torch.models.model.DecoderLM` with ``scan_layers`` its
 per-layer parameters form :class:`~repro_torch.tree.Stacked` leaves and
 their moments are stacked ``[L, ...]`` tensors, so the factored second
 moment factors the leaves the reference factors (the ``[L, d]`` norm
@@ -62,7 +62,7 @@ def _is_leaf(x) -> bool:
 
 
 def _tree(params):
-    """A DenseLM's reference-layout tree, or ``params`` itself (a tree of
+    """A DecoderLM's reference-layout tree, or ``params`` itself (a tree of
     tensors and Stacked leaves)."""
     return params.reference_tree() if hasattr(params, "reference_tree") else params
 

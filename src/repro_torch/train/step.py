@@ -20,7 +20,7 @@ from repro_torch.tree import tree_leaves, tree_unflatten_like
 
 def make_train_step(model, opt_cfg: AdamWConfig):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` for a model from ``build_model``: ``params`` (a DenseLM,
+    metrics)`` for a model from ``build_model``: ``params`` (a DecoderLM,
     made trainable here) and the state are updated in place; ``batch``
     holds host or device arrays of a leading batch axis divisible by
     ``cfg.grad_accum``.  Metrics: the loss's (mean over microbatches),
@@ -30,9 +30,14 @@ def make_train_step(model, opt_cfg: AdamWConfig):
     acc_dtype = getattr(torch, model.cfg.optimizer_dtype)
 
     def grads_of(params, tree, batch):
-        """(loss, metrics, gradients of tree's leaves in order)."""
+        """(loss, metrics, gradients of tree's leaves in order).  A leaf
+        the loss never reads (the softmax router's bias, the sigmoid
+        router's bias, which reaches the loss through top-k indices alone,
+        ``mtp.final_ln``) gets a zero gradient, as JAX gives it: AdamW
+        still decays it and its moments."""
         loss, metrics = model.loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(tree))
+        grads = torch.autograd.grad(loss, tree_leaves(tree), allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(params, opt_state: AdamWState, batch: dict):

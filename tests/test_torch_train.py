@@ -181,11 +181,19 @@ def test_remat_changes_no_bit_and_serving_stays_frozen():
 
 
 def test_mtp_loss_waits_for_the_moe_family():
-    _, cfg = reduced("deepseek_7b", mtp=True)
+    """The reference adds the MTP term for the MoE family only: a dense
+    config with ``mtp=True`` inits no MTP parameters and gives the
+    reference's plain loss (bf16 compute: one bf16 epsilon)."""
+    jcfg, cfg = reduced("deepseek_7b", mtp=True)
+    jp = jax_params("deepseek_7b")          # the flag changes no dense parameter
+    assert "mtp" not in jax.eval_shape(jbuild_model(jcfg).init, jax.random.PRNGKey(0))
     model = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.loss_fn(port_params(cfg, jax_params("deepseek_7b")),
-                      {"tokens": tokens(cfg.vocab_size)})
+    assert model.init(torch.Generator().manual_seed(0)).mtp is None
+    toks = tokens(cfg.vocab_size)
+    jloss, jmetrics = jax.jit(jbuild_model(jcfg).loss_fn)(jp, {"tokens": jnp.asarray(toks)})
+    loss, metrics = model.loss_fn(port_params(cfg, jp), {"tokens": toks})
+    assert set(metrics) == set(jmetrics) == {"lm_loss", "loss"}
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=BF16_EPS)
 
 
 # -------------------------------------------------- attention backward -----
