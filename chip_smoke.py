@@ -7,6 +7,7 @@
     python3 chip_smoke.py --lm-only        # phases 1, 2 and 17 (the LM serving path only)
     python3 chip_smoke.py --train-only     # phases 1, 2 and 18 (the LM training path only)
     python3 chip_smoke.py --moe-only       # phases 1, 2 and 19 (the MoE family only)
+    python3 chip_smoke.py --recurrent-only # phases 1, 2, 20 and 21 (the ssm and hybrid families)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -320,6 +321,50 @@ result line):
                width on 4 096 rows of planted exact ties (equal rows, and
                an under-full expert's zero gates): the top-6 and every
                capacity selection equal on the card and on the CPU.
+20. ssm      -- (right after phase 19, its model freed) the ssm family:
+               rwkv6_3b at full width and depth (32 RWKV-6 layers,
+               d_model 2 560, 40 heads of 64, d_ff 8 960, vocab 65 536;
+               3 075 770 880 parameters, param_count's estimate
+               3 344 957 440), the port's init from a seeded generator,
+               float32 storage, TF32 off.  (a) float32 compute: prefill
+               of 2 x 64 tokens (the chunked WKV) against 64 decode steps
+               (the one-step recurrence), last logits within rtol 1e-3 /
+               atol 1e-4 and the same argmax.  (b) bf16 compute:
+               ServeEngine(slots=8, max_seq=512) over phase 17's 16
+               requests, all complete inside the vocabulary; request 8,
+               which enters a slot another request left, served alone
+               gives its pooled first logits to two bf16 epsilons (the
+               engine zeroes a refilled slot's state); prints the median
+               decode tick against its byte bound, tokens/s, the host's
+               share of a tick, peak GiB and the state's bytes against a
+               per-head K/V cache's of the same depth at 512.  (c) depth
+               32 -> 4, batch 4 x 1 024 (TokenPipeline seed 0) through
+               Trainer.run for 3 steps: losses and gradient norms finite,
+               the first loss equal to loss_fn apart bit for bit; step
+               ms, tokens/s, peak GiB.  (d) the chunked WKV against the
+               sequential scan at B 1, T 1 024, H 40, P 64, decay
+               uniform(0.05, 0.999): outputs and final state within rtol
+               / atol 1e-4.  Cuts: (c)'s depth, batch and steps.
+21. hybrid   -- (right after phase 20, its model freed) the hybrid
+               family: zamba2_2p7b at full width and depth (54 Mamba-2
+               layers, d_model 2 560, d_inner 5 120, 80 heads of 64,
+               state 64, conv 4, chunk 128; the shared block of 32 heads
+               of 80 and d_ff 10 240 applied 9 times; vocab 32 000;
+               2 422 220 960 parameters, param_count 2 427 453 440):
+               the published init's logits are all 0 (the reference's
+               stack has no residual around a Mamba block and collapses
+               to 0 past ~11 layers; printed), so each Mamba out_proj is
+               scaled by sqrt(2 L) (unit_scale_mamba) for (a)-(c), and
+               a compared logits scale of 0 fails the phase.  (a)-(c) as
+               phase 20, (c) at depth 54 -> 12 (the shared block applied
+               twice) at the published chunk of 128, the gradient norms
+               finite; (d) _ssd_chunked at chunk 128, B 1,
+               T 1 024, H 80, P 64, N 64, A = -1 and dt in [0.75, 0.9], so
+               that the reference's exponent above the diagonal passes
+               float32's exp limit (its gradient would be NaN): y and its
+               gradient to x, B, C, dt, a_log against float64 autograd
+               through the sequential recurrence within 1e-4 of each
+               one's scale, the gradient finite.
 
 Every kernel must be launched by at least one of the two fits.  Each
 driven path (the two fits, the service, the sharded fit, the mouse
@@ -2694,6 +2739,31 @@ def plain_attention_core():
         attention.chunked_attention = chunked
 
 
+def serve_profiled(eng, what: str) -> tuple[list[float], list[float], dict]:
+    """Step ``eng`` until its queue and slots are empty.  Returns the wall
+    seconds of each served tick, those of the LM_PROFILED_TICKS ticks from
+    the LM_PROFILE_AT-th on, which run under torch.profiler, and that
+    window's kernel events: the host's share of a tick is the window's
+    kernel time against the median of the other ticks."""
+    ticks, window = [], []
+    events: dict = {}
+    while eng.queue or any(a is not None for a in eng.active):
+        if len(ticks) == LM_PROFILE_AT and not window:
+            def profiled():
+                for _ in range(LM_PROFILED_TICKS):
+                    t0 = time.perf_counter()
+                    eng.step()
+                    window.append(time.perf_counter() - t0)
+            events = kernel_events(profiled)
+            continue
+        t0 = time.perf_counter()
+        eng.step()          # ends in the argmax's read-back: the tick is done
+        ticks.append(time.perf_counter() - t0)
+    if len(window) != LM_PROFILED_TICKS:
+        fail(f"{what}: the serving run ended before its profiled window ({len(ticks)} ticks)")
+    return ticks, window, events
+
+
 def capture_first_logits(eng, rid: int) -> dict:
     """Wrap ``eng``'s step function so that the returned dict gets request
     ``rid``'s logits (float32, on the card) from the tick that consumes its
@@ -2896,23 +2966,7 @@ def phase_lm(smi: str) -> dict:
         eng.submit(Request(rid=r, prompt=prompt, max_new_tokens=LM_NEW))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ticks, window = [], []      # wall seconds of each tick: served, and profiled
-    while eng.queue or any(a is not None for a in eng.active):
-        if len(ticks) == LM_PROFILE_AT and not window:
-            # the host's share of a tick: the kernel time of a window of
-            # this run's own ticks against the median of its other ticks
-            def profiled():
-                for _ in range(LM_PROFILED_TICKS):
-                    t0 = time.perf_counter()
-                    eng.step()
-                    window.append(time.perf_counter() - t0)
-            events = kernel_events(profiled)
-            continue
-        t0 = time.perf_counter()
-        eng.step()          # ends in the argmax's read-back: the tick is done
-        ticks.append(time.perf_counter() - t0)
-    if len(window) != LM_PROFILED_TICKS:
-        fail(f"lm (c): the serving run ended before its profiled window ({len(ticks)} ticks)")
+    ticks, window, events = serve_profiled(eng, "lm (c)")
     serve_s = sum(ticks) + sum(window)
     peak = torch.cuda.max_memory_allocated() / 2**30
     done = sorted(eng.completed, key=lambda r: r.rid)
@@ -3470,6 +3524,39 @@ def check_moe_ties(gen) -> dict:
     return res
 
 
+def run_trainer_apart(model, pipe, n_steps: int, label: str):
+    """``Trainer.run`` for ``n_steps`` steps from seed 0, with ``loss_fn``
+    taken apart on the initial parameters (under no_grad) and the run's one
+    checkpoint (at its last step) recorded, not written.  Returns (trainer,
+    params, optimizer state, steps, run seconds, {"init_s", "loss",
+    "metrics"} of the apart call, the log's wall seconds, the steps saved,
+    peak GiB)."""
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    trainer = Trainer(model, pipe, TrainerConfig(
+        n_steps=n_steps, ckpt_every=n_steps, log_every=1,
+        ckpt_dir=tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")))
+    first, init_state = {}, trainer.init_state
+    saves = []
+
+    def init_and_loss_apart(seed):
+        state, first["init_s"] = synced_seconds(lambda: init_state(seed))
+        with torch.no_grad():
+            first["loss"], first["metrics"] = model.loss_fn(state[0], pipe.batch(0))
+        return state
+
+    trainer.init_state = init_and_loss_apart
+    trainer.ckpt.save = lambda step, tree, blocking=False: saves.append(step)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    try:
+        (params, opt_state, steps), run_s = synced_seconds(lambda: trainer.run(
+            seed=0, callback=lambda s_, m_: walls.append(m_["wall_s"])))
+    finally:
+        shutil.rmtree(trainer.tcfg.ckpt_dir, ignore_errors=True)
+    return (trainer, params, opt_state, steps, run_s, first, walls, saves,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
 def phase_moe(smi: str) -> dict:
     """Phase 19: the MoE family; see the module docstring."""
     from repro_torch.configs import get_config, get_reduced_config, param_count
@@ -3477,7 +3564,6 @@ def phase_moe(smi: str) -> dict:
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.train import step as step_mod
-    from repro_torch.train.trainer import Trainer, TrainerConfig
 
     t_phase = time.perf_counter()
     free_card()
@@ -3534,23 +3620,7 @@ def phase_moe(smi: str) -> dict:
         eng.submit(Request(rid=r, prompt=prompt, max_new_tokens=MOE_NEW))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ticks, window = [], []      # wall seconds of each tick: served, and profiled
-    while eng.queue or any(a is not None for a in eng.active):
-        if len(ticks) == LM_PROFILE_AT and not window:
-            # the device's share of a tick: the kernel time of a window of
-            # this run's own ticks against the median of its other ticks
-            def profiled():
-                for _ in range(LM_PROFILED_TICKS):
-                    t0 = time.perf_counter()
-                    eng.step()
-                    window.append(time.perf_counter() - t0)
-            events = kernel_events(profiled)
-            continue
-        t0 = time.perf_counter()
-        eng.step()          # ends in the argmax's read-back: the tick is done
-        ticks.append(time.perf_counter() - t0)
-    if len(window) != LM_PROFILED_TICKS:
-        fail(f"moe (b): the serving run ended before its profiled window ({len(ticks)} ticks)")
+    ticks, window, events = serve_profiled(eng, "moe (b)")
     serve_s = sum(ticks) + sum(window)
     by_kernel = {k: sum(v) for k, v in events.items()}
     busy_ms = sum(by_kernel.values()) * 1e-3 / LM_PROFILED_TICKS
@@ -3617,30 +3687,10 @@ def phase_moe(smi: str) -> dict:
     model = build_model(cfg_t)
     pipe = TokenPipeline(cfg_t.vocab_size, global_batch=MOE_TRAIN_BATCH,
                          seq_len=MOE_TRAIN_SEQ, seed=0)
-    trainer = Trainer(model, pipe, TrainerConfig(
-        n_steps=MOE_TRAIN_STEPS, ckpt_every=MOE_TRAIN_STEPS, log_every=1,
-        ckpt_dir=tempfile.mkdtemp(prefix="chip_smoke_moe_")))
-    first, init_state = {}, trainer.init_state
-    saves = []
-
-    def init_and_loss_apart(seed):
-        state, first["init_s"] = synced_seconds(lambda: init_state(seed))
-        with torch.no_grad():
-            first["loss"], first["metrics"] = model.loss_fn(state[0], pipe.batch(0))
-        return state
-
-    trainer.init_state = init_and_loss_apart
     # the run's one checkpoint (at its last step, 27 GB with the moments)
     # is not written: phase 18 writes and times one
-    trainer.ckpt.save = lambda step, tree, blocking=False: saves.append(step)
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    try:
-        (tparams, opt_state, steps), run_s = synced_seconds(lambda: trainer.run(
-            seed=0, callback=lambda s_, m_: walls.append(m_["wall_s"])))
-    finally:
-        shutil.rmtree(trainer.tcfg.ckpt_dir, ignore_errors=True)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer, tparams, opt_state, steps, run_s, first, walls, saves, peak = run_trainer_apart(
+        model, pipe, MOE_TRAIN_STEPS, "moe")
     n_train = sum(p.numel() for p in tparams.parameters())
     log_ = trainer.metrics_log
     losses = [m_["loss_mean"] for m_ in log_]
@@ -3718,6 +3768,398 @@ def phase_moe(smi: str) -> dict:
     return out
 
 
+# Phases 20 and 21: the recurrent families at full width and depth, each
+# stored in float32.  rwkv6_3b (ssm): 32 RWKV-6 layers, d_model 2 560, 40
+# heads of 64, d_ff 8 960, vocab 65 536; 3 075 770 880 parameters
+# (param_count's estimate, the reference's formula: 3 344 957 440).
+# zamba2_2p7b (hybrid): 54 Mamba-2 layers, d_model 2 560, d_inner 5 120,
+# 80 heads of 64, state 64, conv 4, chunk 128, and one shared block (32
+# heads of 80, d_ff 10 240) after every 6th layer: 9 applications; vocab
+# 32 000; 2 422 220 960 parameters (param_count: 2 427 453 440).  Cuts:
+# in (c) the depth (32 -> 4; 54 -> 12, so that the shared block runs
+# twice), train_4k's batch 256 x 4 096 -> 4 x 1 024 and 3 steps.
+#
+# The reference's hybrid stack has no residual around a Mamba block, and
+# its init scales out_proj by 1 / sqrt(2 L): at 54 layers each block's
+# output is ~0.1 of its input's scale, and once y * silu(z) falls under
+# rms_norm's eps the decay turns quadratic: the hidden state is exactly 0
+# within ~11 layers and every logit is 0 (the reference's and the port's
+# alike: tests/test_torch_hybrid.py).  So phase 21's (a) also runs at
+# depth REC_HYBRID_LIVE (the published init for that depth: the shared
+# block applied twice, the logits O(1)), and (b) serves with each Mamba
+# out_proj scaled by sqrt(2 L) (unit_scale_mamba), so that its tokens and
+# the refilled slot's check are not all zeros; at unit scale the stack is
+# chaotic (a rounding grows ~2.5x a layer), which serving does not mind
+# (a slot's row is computed apart from the others, bit for bit) but a
+# decode-against-prefill check would.  A compared logits scale of 0 fails
+# the phase.
+SSM_ARCH, HYBRID_ARCH = "rwkv6_3b", "zamba2_2p7b"
+REC_HYBRID_LIVE = 8
+REC_TRAIN_LAYERS = {SSM_ARCH: 4, HYBRID_ARCH: 12}
+REC_TRAIN_BATCH, REC_TRAIN_SEQ, REC_TRAIN_STEPS = 4, 1024, 3
+# (d): one sequence of 1 024 at the full configs' heads: WKV (B, T, H, P),
+# SSD (B, T, H, P, N) at zamba2's chunk of 128
+REC_WKV_SHAPE = (1, 1024, 40, 64)
+REC_SSD_SHAPE = (1, 1024, 80, 64, 64)
+# (d): the chunked forms against the sequential recurrence on the same
+# inputs: the reference's test_wkv_chunked_matches_scan limit (rtol 1e-4,
+# atol 1e-4) for the WKV; 1e-4 of each quantity's scale for the SSD scan
+# and its gradient against float64 autograd
+REC_SCAN_REL = 1e-4
+
+
+def recurrent_param_count(cfg) -> int:
+    """The parameters the reference's init holds for an ssm or hybrid
+    config (``param_count`` is an estimate for these families): untied
+    embedding and unembed, final_ln, and per RWKV-6 layer six d x d
+    weights, the FFN, the decay's low-rank pair and ten d-vectors (7 mixes,
+    w0, u, ln_x); per Mamba-2 layer in_proj, w_bc, w_dt, the conv, the
+    norm, out_proj and three head vectors; the shared block once."""
+    d, L = cfg.d_model, cfg.n_layers
+    total = 2 * cfg.vocab_size * d + d
+    if cfg.family == "ssm":
+        return total + L * (6 * d * d + 2 * d * cfg.d_ff + 2 * d * max(32, d // 32) + 10 * d)
+    s = cfg.ssm
+    din = s.expand * d
+    h = din // s.head_dim
+    mamba = 2 * d * din + 2 * d * s.state_dim + d * h + 3 * h + s.conv_width * din + din \
+        + din * d
+    hd = cfg.resolved_head_dim
+    shared = 2 * d + d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * d \
+        + 3 * d * s.shared_d_ff
+    return total + L * mamba + (shared if s.shared_stride else 0)
+
+
+def recurrent_tick_bounds(n_params: int, cache: dict, cfg) -> dict:
+    """The least time of one decode tick at LM_SLOTS slots on this card,
+    by bytes (ms): the parameters as the reference computes them (read in
+    float32, written and read again in bf16: 8 B each) or from a held bf16
+    copy (2 B each); the whole cache read, and its recurrent part (RWKV's
+    state and shift rows, Mamba's state and conv rows) written.  Beside
+    it the cache's bytes and those of a per-head K/V cache of the same
+    depth at LM_MAX_SEQ (bf16)."""
+    from repro_torch.tree import tree_leaves
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))  # noqa: E731
+    read = nbytes(cache)
+    written = nbytes(cache if cfg.family == "ssm" else cache["ssm"])
+    kv = 2 * cfg.n_layers * LM_SLOTS * LM_MAX_SEQ * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    return dict(cast_ms=8 * n_params / PEAK_HBM_BYTES * 1e3,
+                bf16_copy_ms=2 * n_params / PEAK_HBM_BYTES * 1e3,
+                cache_ms=(read + written) / PEAK_HBM_BYTES * 1e3,
+                tick_bound_ms=(8 * n_params + read + written) / PEAK_HBM_BYTES * 1e3,
+                cache_bytes=read, recurrent_bytes=written, kv_cache_bytes=kv)
+
+
+def unit_scale_mamba(params) -> None:
+    """Scale each Mamba layer's out_proj by sqrt(2 L), in place: the
+    reference's init divides it by that (its residual-stream scaling), but
+    the hybrid stack has no residual around a Mamba block, so at the
+    published depth the hidden state collapses to 0 (see the constants of
+    phases 20-21)."""
+    layers = params.layers.mamba
+    with torch.no_grad():
+        for layer in layers:
+            layer["out_proj"].mul_((2 * len(layers)) ** 0.5)
+
+
+def check_wkv_forms(gen) -> dict:
+    """Phase 20 (d): ``_wkv_chunked_parallel`` against ``_wkv_scan`` at
+    REC_WKV_SHAPE (rwkv6_3b's 40 heads of 64), a carried state, the
+    reference test's decay range uniform(0.05, 0.999): outputs and final
+    state to rtol / atol REC_SCAN_REL; both forms timed."""
+    from repro_torch.models import rwkv
+    b, t, h, p = REC_WKV_SHAPE
+    r, k, v = (torch.randn(b, t, h, p, generator=gen, device=gen.device) for _ in range(3))
+    w = 0.05 + 0.949 * torch.rand(b, t, h, p, generator=gen, device=gen.device)
+    u = torch.randn(h, p, generator=gen, device=gen.device)
+    s0 = torch.randn(b, h, p, p, generator=gen, device=gen.device)
+    with torch.no_grad():
+        o_c, s_c = rwkv._wkv_chunked_parallel(r, k, v, w, u, s0)
+        o_s, s_s = rwkv._wkv_scan(r, k, v, w, u, s0)
+        res = dict(out_max_abs_err=float((o_c - o_s).abs().max()),
+                   out_scale=float(o_s.abs().max()),
+                   state_max_abs_err=float((s_c - s_s).abs().max()),
+                   state_scale=float(s_s.abs().max()),
+                   chunked_ms=cuda_ms(lambda: rwkv._wkv_chunked_parallel(r, k, v, w, u, s0),
+                                      reps=3, inner=1),
+                   scan_ms=cuda_ms(lambda: rwkv._wkv_scan(r, k, v, w, u, s0), reps=3, inner=1))
+        ok = torch.allclose(o_c, o_s, rtol=REC_SCAN_REL, atol=REC_SCAN_REL) and \
+            torch.allclose(s_c, s_s, rtol=REC_SCAN_REL, atol=REC_SCAN_REL)
+    log(f"ssm (d) chunked WKV against the sequential scan at B {b}, T {t}, H {h}, P {p}, "
+        f"float32: " + json.dumps(res) + f" (rtol / atol {REC_SCAN_REL})")
+    if not ok:
+        fail("ssm (d): the chunked WKV disagrees with the sequential scan")
+    return res
+
+
+def ssd_sequential64(xh, bt, ct, dt, a_log):
+    """The SSD recurrence step by step in float64: S_t = exp(dt_t A) S_{t-1}
+    + dt_t B_t (x) x_t, y_t = C_t . S_t (A = -exp(a_log))."""
+    a = -torch.exp(a_log)
+    s = torch.zeros(xh.shape[0], xh.shape[2], bt.shape[-1], xh.shape[3], dtype=torch.float64,
+                    device=xh.device)
+    ys = []
+    for t in range(xh.shape[1]):
+        s = torch.exp(dt[:, t] * a)[:, :, None, None] * s \
+            + dt[:, t, :, None, None] * bt[:, t, None, :, None] * xh[:, t, :, None, :]
+        ys.append(torch.einsum("bn,bhnp->bhp", ct[:, t], s))
+    return torch.stack(ys, dim=1)
+
+
+def check_ssd_gradient(gen) -> dict:
+    """Phase 21 (d): ``_ssd_chunked`` at zamba2's chunk of 128 and
+    REC_SSD_SHAPE (its 80 heads of 64, state 64), A = -1 (a_log 0, as at
+    init) and dt from [0.75, 0.9], so that the reference's exponent above
+    the diagonal (a sum of up to 127 dt) passes float32's exp limit of
+    88.72: y and the gradient of <y, g> (g random) to x, B, C, dt and
+    a_log against float64 autograd through the sequential recurrence, to
+    REC_SCAN_REL of each one's scale, the gradient finite."""
+    from repro_torch.models import ssm
+    (b, t, h, p, n), q = REC_SSD_SHAPE, 128
+    dev = gen.device
+    ins = dict(xh=torch.randn(b, t, h, p, generator=gen, device=dev),
+               bt=torch.randn(b, t, n, generator=gen, device=dev) * n**-0.5,
+               ct=torch.randn(b, t, n, generator=gen, device=dev) * n**-0.5,
+               dt=0.75 + 0.15 * torch.rand(b, t, h, generator=gen, device=dev),
+               a_log=torch.zeros(h, device=dev))
+    cot = torch.randn(b, t, h, p, generator=gen, device=dev)
+    # the reference's exponent where it masks after the exp: cla_i - cla_j, j > i
+    cla = torch.cumsum((-ins["dt"]).reshape(b, t // q, q, h), dim=2)
+    dd = cla[:, :, :, None, :] - cla[:, :, None, :, :]         # [.., i, j]: cla_i - cla_j
+    upper = torch.triu(torch.ones(q, q, dtype=torch.bool, device=dev), 1)   # j > i
+    dd_max = float(dd[:, :, upper].max())
+    leaves = {k: v.clone().requires_grad_(True) for k, v in ins.items()}
+    y, _ = ssm._ssd_chunked(**leaves, chunk=q)
+    grads = torch.autograd.grad((y * cot).sum(), list(leaves.values()))
+    ins64 = {k: v.double().requires_grad_(True) for k, v in ins.items()}
+    y64 = ssd_sequential64(**ins64)
+    grads64 = torch.autograd.grad((y64 * cot.double()).sum(), list(ins64.values()))
+    y, y64 = y.detach(), y64.detach()
+    errs = {"y": float((y.double() - y64).abs().max() / y64.abs().max())}
+    for name, g, g64 in zip(ins, grads, grads64):
+        errs[f"d{name}"] = float((g.double() - g64).abs().max() / g64.abs().max())
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    ms = cuda_ms(lambda: ssm._ssd_chunked(**ins, chunk=q), reps=3, inner=1)
+    res = dict(masked_exponent_max=dd_max, exp_overflows=dd_max > 88.72, rel_errs=errs,
+               grad_finite=finite, chunked_forward_ms=ms)
+    log(f"hybrid (d) _ssd_chunked at chunk {q}, B {b}, T {t}, H {h}, P {p}, N {n}, dt in "
+        f"[0.75, 0.9]: the reference's exponent above the diagonal reaches {dd_max:.2f} "
+        f"(exp overflows past 88.72: {dd_max > 88.72}); y and the gradient against float64 "
+        f"autograd of the sequential recurrence, max |d| over each one's scale "
+        f"{json.dumps(errs)} (limit {REC_SCAN_REL}); gradient finite {finite}; the chunked "
+        f"forward {ms:.3f} ms")
+    del leaves, ins64, y64, grads, grads64, dd
+    if dd_max <= 88.72:
+        fail("hybrid (d): dt does not take the reference's exponent past float32's exp limit")
+    if not finite or max(errs.values()) > REC_SCAN_REL:
+        fail(f"hybrid (d): the SSD scan or its gradient disagrees with float64: {errs}")
+    return res
+
+
+def check_decode_prefill(tag: str, model, params, tokens) -> dict:
+    """(a) of phases 20-21: ``model``'s float32 prefill of ``tokens`` [B,
+    S] (the chunked scan) against S decode steps (the one-step
+    recurrence): the last logits within rtol 1e-3 / atol 1e-4, the same
+    argmax.  Returns the error, the logits' scale and the times."""
+    b, s = tokens.shape
+    dev = tokens.device
+    want, prefill_s = synced_seconds(lambda: model.prefill(params, {"tokens": tokens}))
+    cache = model.init_cache(b, s)
+    t0 = time.perf_counter()
+    for t in range(s):
+        logits, cache = model.decode_step(params, cache, tokens[:, t],
+                                          torch.full((b,), t, device=dev))
+    torch.cuda.synchronize()
+    err = float((logits - want).abs().max())
+    same = torch.equal(logits.argmax(-1), want.argmax(-1))
+    res = dict(prefill_s=prefill_s, decode_ms=(time.perf_counter() - t0) / s * 1e3,
+               decode_vs_prefill=err, scale=float(want.abs().max()))
+    log(f"{tag} (a) float32, {model.cfg.n_layers} layers, {b} x {s} tokens: decode's last "
+        f"logits against prefill's max |d| {err:.3e} (scale {res['scale']!r}; rtol 1e-3, atol "
+        f"1e-4), argmax equal {same}; prefill {prefill_s * 1e3:.1f} ms, "
+        f"{res['decode_ms']:.2f} ms a float32 decode step")
+    if not torch.allclose(logits, want, rtol=1e-3, atol=1e-4) or not same:
+        fail(f"{tag} (a): float32 decode does not reproduce prefill's last logits")
+    return res
+
+
+def phase_recurrent(smi: str, arch: str) -> dict:
+    """Phase 20 (``SSM_ARCH``) or 21 (``HYBRID_ARCH``): a recurrent family
+    at full width and depth; see the module docstring."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    free_card()
+    dev = torch.device("cuda")
+    full = get_config(arch)
+    tag, no = ("ssm", 20) if full.family == "ssm" else ("hybrid", 21)
+    m16 = build_model(full)
+    m32 = build_model(dataclasses.replace(full, compute_dtype="float32"))
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = synced_seconds(lambda: m16.init(torch.Generator(dev).manual_seed(0)))
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != recurrent_param_count(full):
+        fail(f"{tag}: {n_params} parameters, the reference's init holds "
+             f"{recurrent_param_count(full)}")
+    out = dict(arch=arch, n_params=n_params, param_count=param_count(full)[0], init_s=init_s)
+    log(f"{tag} (phase {no}): {arch} at full width and depth, {n_params} parameters "
+        f"({n_params * 4 / 2**30:.2f} GiB in float32; param_count's estimate "
+        f"{out['param_count']}) initialised in {init_s:.2f} s; {smi}")
+    gen = torch.Generator(dev).manual_seed(1)
+    vocab = full.vocab_size
+    tokens = torch.randint(0, vocab, LM_DECODE, generator=gen, device=dev)
+
+    # (a) float32: prefill (the chunked scan) against decode (the one-step
+    # recurrence); for the hybrid also at the depth whose logits live
+    out["f32"] = check_decode_prefill(tag, m32, params, tokens)
+    if full.family == "hybrid":
+        cut = build_model(dataclasses.replace(full, n_layers=REC_HYBRID_LIVE,
+                                              compute_dtype="float32"))
+        out["f32_live"] = check_decode_prefill(
+            tag, cut, cut.init(torch.Generator(dev).manual_seed(0)), tokens)
+        if out["f32_live"]["scale"] == 0:
+            fail(f"{tag} (a): every logit is 0 at depth {REC_HYBRID_LIVE}")
+        unit_scale_mamba(params)
+        log(f"{tag} (a) the published init's logits at {full.n_layers} layers: scale "
+            f"{out['f32']['scale']!r} (the stack's collapse); (b) serves with each Mamba "
+            f"out_proj scaled by sqrt(2 L) = {(2 * full.n_layers) ** 0.5:.3f}")
+        del cut
+    elif out["f32"]["scale"] == 0:
+        fail(f"{tag} (a): every logit is 0")
+
+    # (b) serving in bf16: phase 17's 16 requests through 8 slots; request
+    # LM_ALONE_RID, the ninth, enters a slot another request left
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
+               for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
+    eng = ServeEngine(m16, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, params=params)
+    pooled_first = capture_first_logits(eng, LM_ALONE_RID)
+    for r, prompt in enumerate(prompts):
+        eng.submit(Request(rid=r, prompt=prompt, max_new_tokens=LM_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ticks, window, events = serve_profiled(eng, f"{tag} (b)")
+    serve_s = sum(ticks) + sum(window)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    done = sorted(eng.completed, key=lambda r: r.rid)
+    if len(done) != LM_REQUESTS or any(
+            len(r.generated) != LM_NEW or not all(0 <= t < vocab for t in r.generated)
+            for r in done):
+        fail(f"{tag} (b): {len(done)} of {LM_REQUESTS} requests completed, not all with "
+             f"{LM_NEW} tokens inside the vocabulary")
+    generated = sum(len(r.generated) for r in done)
+    by_kernel = {k: sum(v) for k, v in events.items()}
+    busy_ms = sum(by_kernel.values()) * 1e-3 / LM_PROFILED_TICKS
+    tick_ms = float(np.median(ticks)) * 1e3
+    bounds = recurrent_tick_bounds(n_params, eng.cache, full)
+    alone = ServeEngine(m16, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, params=params)
+    alone_first = capture_first_logits(alone, LM_ALONE_RID)
+    alone.submit(Request(rid=LM_ALONE_RID, prompt=prompts[LM_ALONE_RID], max_new_tokens=1))
+    alone.run()
+    a, p = alone_first["logits"], pooled_first["logits"]
+    alone_err = float((a - p).abs().max())
+    n_ticks = len(ticks) + len(window)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    out["serve"] = dict(
+        requests=LM_REQUESTS, ticks=n_ticks, generated=generated,
+        prompt_tokens=sum(map(len, prompts)), serve_s=serve_s, tick_ms_median=tick_ms,
+        tick_ms_p10_p90=[float(np.percentile(ticks, q)) * 1e3 for q in (10, 90)],
+        profiled_tick_ms_median=float(np.median(window)) * 1e3,
+        device_busy_ms_a_tick=busy_ms if busy_ms > 0 else None,
+        host_share=1 - busy_ms / tick_ms if busy_ms > 0 else None,
+        kernels_a_tick=sum(map(len, events.values())) / LM_PROFILED_TICKS,
+        top_kernels_ms_a_tick={k[:70]: v * 1e-3 / LM_PROFILED_TICKS for k, v in top},
+        generated_tokens_per_s=generated / serve_s,
+        all_tokens_per_s=(generated + sum(map(len, prompts))) / serve_s, peak_gib=peak,
+        bounds=bounds, alone_vs_pooled=alone_err,
+        alone_first_token_equal=alone.completed[0].generated[0] == done[LM_ALONE_RID].generated[0],
+        serve_stats=eng.stats())
+    sv = out["serve"]
+    log(f"{tag} (b) serving bf16 (float32 storage), {LM_SLOTS} slots x {LM_MAX_SEQ}: "
+        f"{generated} tokens generated ({sv['prompt_tokens']} prompt tokens fed by decode) in "
+        f"{n_ticks} ticks, {serve_s:.3f} s; generated tokens/s "
+        f"{sv['generated_tokens_per_s']:.2f}, all tokens/s {sv['all_tokens_per_s']:.2f}")
+    log(f"{tag} (b) decode tick: median {tick_ms:.3f} ms (p10 / p90 "
+        f"{sv['tick_ms_p10_p90'][0]:.3f} / {sv['tick_ms_p10_p90'][1]:.3f}); bound "
+        f"{bounds['tick_bound_ms']:.3f} ms (bytes) = cast {bounds['cast_ms']:.3f} + cache "
+        f"{bounds['cache_ms']:.4f}; with a held bf16 copy {bounds['bf16_copy_ms']:.3f} + cache; "
+        f"peak device memory {peak:.2f} GiB; {smi}")
+    log(f"{tag} (b) device time of a tick (served ticks {LM_PROFILE_AT}-"
+        f"{LM_PROFILE_AT + LM_PROFILED_TICKS - 1}, profiled: median "
+        f"{sv['profiled_tick_ms_median']:.3f} ms a tick): "
+        + ("not measured (the profiler recorded no kernel)" if busy_ms <= 0 else
+           f"{busy_ms:.3f} ms of kernels in {sv['kernels_a_tick']:.1f} launches, host share "
+           f"{sv['host_share']:.3f}; ms a tick by kernel "
+           + json.dumps(sv["top_kernels_ms_a_tick"])))
+    log(f"{tag} (b) the cache {bounds['cache_bytes']} bytes ({bounds['recurrent_bytes']} of it "
+        f"recurrent state, written every tick) against {bounds['kv_cache_bytes']} for a "
+        f"per-head K/V cache of the same depth at {LM_MAX_SEQ} "
+        f"({bounds['kv_cache_bytes'] / bounds['cache_bytes']:.2f} x)")
+    log(f"{tag} (b) request {LM_ALONE_RID} (into a refilled slot) alone against pooled: first "
+        f"logits max |d| {alone_err:.3e} (limit {LM_ALONE_REL} x {float(p.abs().max()):.3f}), "
+        f"first token equal {sv['alone_first_token_equal']}")
+    log(f"{tag} (b) serve.* snapshot: " + json.dumps(sv["serve_stats"]))
+    if alone_err > LM_ALONE_REL * float(p.abs().max()) or float(p.abs().max()) == 0:
+        fail(f"{tag} (b): request {LM_ALONE_RID} alone and pooled disagree: {alone_err:.3e}")
+    snap = sv["serve_stats"]
+    if (snap["serve.completed"], snap["serve.tokens"], snap["serve.ticks"]) != \
+            (LM_REQUESTS, generated, n_ticks):
+        fail(f"{tag} (b): the serve.* counters disagree with the run: {snap}")
+    del eng, alone, params, m16, m32        # the spies close over their engines
+    free_card()
+
+    # (c) training at full width, depth cut, float32 storage, bf16 compute
+    layers = REC_TRAIN_LAYERS[arch]
+    model = build_model(dataclasses.replace(full, n_layers=layers))
+    pipe = TokenPipeline(full.vocab_size, global_batch=REC_TRAIN_BATCH,
+                         seq_len=REC_TRAIN_SEQ, seed=0)
+    trainer, tparams, opt_state, steps, run_s, first, walls, saves, peak = run_trainer_apart(
+        model, pipe, REC_TRAIN_STEPS, tag)
+    n_train = sum(p.numel() for p in tparams.parameters())
+    log_ = trainer.metrics_log
+    losses = [m_["loss_mean"] for m_ in log_]
+    gnorms = [m_["grad_norm"] for m_ in log_]
+    step_ms = [1e3 * (b_ - a_) for a_, b_ in zip([0.0] + walls[:-1], walls)]
+    steady = float(np.median(step_ms[1:]))
+    loss0 = float(first["loss"])
+    out["train"] = dict(
+        n_layers=layers, n_params=n_train, batch=REC_TRAIN_BATCH, seq=REC_TRAIN_SEQ,
+        steps=steps, init_s=first["init_s"], run_s=run_s, losses=losses, grad_norms=gnorms,
+        step_ms=step_ms, step_ms_median_after_first=steady,
+        tokens_per_s=REC_TRAIN_BATCH * REC_TRAIN_SEQ / (steady * 1e-3), peak_gib=peak,
+        first_loss_apart=loss0, first_loss_bit_equal=losses[0] == loss0)
+    apps = "" if full.family == "ssm" else \
+        f", the shared block applied {-(-layers // full.ssm.shared_stride)} times"
+    log(f"{tag} (c) training {arch} at full width, {layers} layers{apps} ({n_train} parameters, "
+        f"float32 storage, bf16 compute), batch {REC_TRAIN_BATCH} x {REC_TRAIN_SEQ}: losses "
+        f"{json.dumps(losses)}, grad norms {json.dumps(gnorms)}; ms a step "
+        f"{json.dumps([round(x, 1) for x in step_ms])} (median after the first {steady:.1f}: "
+        f"{out['train']['tokens_per_s']:.1f} tokens/s); peak {peak:.2f} GiB; {smi}")
+    log(f"{tag} (c) first loss {losses[0]!r} against loss_fn apart {loss0!r} (bit for bit "
+        f"{out['train']['first_loss_bit_equal']})")
+    if steps != REC_TRAIN_STEPS or len(losses) != REC_TRAIN_STEPS \
+            or not np.all(np.isfinite(losses)) or not np.all(np.isfinite(gnorms)):
+        fail(f"{tag} (c): {steps} steps, losses {losses}, grad norms {gnorms}")
+    if losses[0] != loss0:
+        fail(f"{tag} (c): the first step's loss {losses[0]!r} is not loss_fn's {loss0!r}")
+    if saves != [REC_TRAIN_STEPS]:
+        fail(f"{tag} (c): checkpoint saves at {saves}")
+    del tparams, opt_state, trainer, model, first
+    free_card()
+
+    # (d) the chunked scan against the sequential recurrence
+    out["scan"] = check_wkv_forms(gen) if full.family == "ssm" else check_ssd_gradient(gen)
+    free_card()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag} (phase {no}): " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-iter", type=int, default=1000,
@@ -3740,6 +4182,9 @@ def main() -> None:
     ap.add_argument("--moe-only", action="store_true",
                     help="phases 1, 2 and 19 (the MoE family, deepseek_v2_lite_16b at full "
                          "width), for iterating on it; no kernels line")
+    ap.add_argument("--recurrent-only", action="store_true",
+                    help="phases 1, 2, 20 and 21 (the ssm and hybrid families, rwkv6_3b and "
+                         "zamba2_2p7b at full width and depth); no kernels line")
     args = ap.parse_args()
 
     t_run = time.perf_counter()
@@ -3748,8 +4193,12 @@ def main() -> None:
     from repro_torch.kernels import ops
     build_logs = phase_build()
 
-    if args.lm_only or args.train_only or args.moe_only:
-        (phase_lm if args.lm_only else phase_train if args.train_only else phase_moe)(smi)
+    if args.recurrent_only or args.lm_only or args.train_only or args.moe_only:
+        if args.recurrent_only:
+            phase_recurrent(smi, SSM_ARCH)
+            phase_recurrent(smi, HYBRID_ARCH)
+        else:
+            (phase_lm if args.lm_only else phase_train if args.train_only else phase_moe)(smi)
         log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3777,12 +4226,14 @@ def main() -> None:
     # phase 16 first: late in a long run, torch.profiler on the card's
     # machine has recorded no kernel event at all (phase 14's device times)
     contracts = phase_contracts(smi, build_logs)
-    # phases 17, 18 and 19 next, while the card is empty: their models hold
+    # phases 17-21 next, while the card is empty: their models hold
     # 27.6 GB, 15.3 GB (with its optimizer, gradients and activations
-    # ~55 GiB) and 62.8 GB
+    # ~55 GiB), 62.8 GB, 12.3 GB and 9.7 GB
     lm = phase_lm(smi)
     phase_train(smi)
     phase_moe(smi)
+    phase_recurrent(smi, SSM_ARCH)
+    phase_recurrent(smi, HYBRID_ARCH)
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
 

@@ -4,10 +4,10 @@ t-SNE has no weights.  What one package's run hands the other is the
 fitted sparse input-similarity graph, the descent state (whole, or split
 over a device mesh by :func:`shard_state`) and a fitted random-projection
 forest.  The LM substrate does have weights: :func:`lm_params_from_numpy`
-carries a decoder's parameter tree across (dense or MoE; and
+carries a decoder's parameter tree across (dense, MoE, ssm or hybrid; and
 :func:`lm_params_to_numpy` back), :func:`adamw_state_from_numpy` its
-optimizer state and :func:`kv_cache_from_numpy` its stacked KV or latent
-cache.
+optimizer state and :func:`kv_cache_from_numpy` its stacked KV, latent or
+recurrent cache.
 Everything crosses as numpy arrays (never framework objects), so this module needs nothing of
 the JAX package.  The LM functions import the LM package when called: the
 t-SNE half does not load it.
@@ -101,36 +101,45 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+# leaves the reference's init stores in float32 whatever param_dtype is:
+# RWKV's decay base and bonus, Mamba's dt bias, A and skip
+FLOAT32_LEAVES = ("w0", "u", "dt_bias", "a_log", "d_skip")
+
+
 def _leaf_dtypes(cfg: ArchConfig, tree):
     """Each leaf's parameter dtype as the reference's init gives it:
-    ``cfg.param_dtype``, except the MoE router's ``w`` and ``bias``, which
-    are float32 whatever ``param_dtype`` is."""
+    ``cfg.param_dtype``, except the MoE router's ``w`` and ``bias`` and
+    :data:`FLOAT32_LEAVES`, which are float32 whatever ``param_dtype`` is."""
     pd = cfg.pdtype()
-    return tree_unflatten_like(tree, [torch.float32 if "router" in path else pd
-                                      for path, _ in tree_leaves_with_path(tree)])
+    return tree_unflatten_like(tree, [
+        torch.float32 if "router" in path or path[-1] in FLOAT32_LEAVES else pd
+        for path, _ in tree_leaves_with_path(tree)])
 
 
 def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> DecoderLM:
     """A decoder's parameters (:class:`~repro_torch.models.model.DecoderLM`)
     from the reference's parameter tree as numpy arrays
     (``jax.tree.map(np.asarray, params)``), each leaf cast to its
-    reference dtype (``cfg.param_dtype``; the MoE router float32).
+    reference dtype (``cfg.param_dtype``; the MoE router and
+    :data:`FLOAT32_LEAVES` float32).
 
     Weights keep the reference's ``[in, out]`` layout (the port computes
     ``x @ w``, as the reference does), so nothing is transposed.  Each
-    layer stack (``layers``, and the MoE family's ``dense_layers``) may be
-    the scanned layout (a dict whose leaves are stacked ``[L, ...]``,
-    ``scan_layers=True``) or a list of block dicts."""
-    from repro_torch.models.model import DecoderLM, layer_stacks
+    layer stack (``layers``, the MoE family's ``dense_layers``, the hybrid
+    family's ``layers/mamba``) may be the scanned layout (a dict whose
+    leaves are stacked ``[L, ...]``, ``scan_layers=True`` and always for
+    the ssm and hybrid families) or a list of block dicts."""
+    from repro_torch.models.model import DecoderLM, layer_stacks, tree_get, tree_put
     dev = resolve_device(device)
-    tree = dict(tree)
-    for name, depth in layer_stacks(cfg).items():
-        layers = tree[name]
+    tree = tree_map(lambda a: a, tree)              # the containers copied, not the leaves
+    for path, depth in layer_stacks(cfg).items():
+        layers = tree_get(tree, path)
         if isinstance(layers, dict):
             layers = [tree_map(lambda a, i=i: np.asarray(a)[i], layers) for i in range(depth)]
         if len(layers) != depth:
-            raise ValueError(f"{len(layers)} {name} in the tree, {depth} in {cfg.name}")
-        tree[name] = list(layers)
+            raise ValueError(f"{len(layers)} {'/'.join(path)} in the tree, {depth} in "
+                             f"{cfg.name}")
+        tree_put(tree, path, list(layers))
     return DecoderLM(cfg, tree_map(lambda a, dt: _tensor(a, dev).to(dt), tree,
                                    _leaf_dtypes(cfg, tree)))
 
@@ -139,19 +148,20 @@ def lm_params_to_numpy(params: DecoderLM, stacked: bool = True) -> dict:
     """The reference's parameter tree (``jax.tree.map(np.asarray, params)``'s
     form) from a :class:`~repro_torch.models.model.DecoderLM`: each layer
     stack a block dict of stacked ``[L, ...]`` arrays
-    (``scan_layers=True``), or the list of block dicts.  Copied to the
+    (``scan_layers=True``; always for the ssm and hybrid families, which
+    have no other layout), or the list of block dicts.  Copied to the
     host, then stacked there; bfloat16 parameters come back as float32
     arrays (exact: numpy has no bfloat16)."""
-    from repro_torch.models.model import layer_stacks
+    from repro_torch.models.model import layer_stacks, tree_get, tree_put
 
     def host(t: torch.Tensor) -> np.ndarray:
         t = t.detach().to("cpu", copy=True)
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     tree = tree_map(host, params.tree())
-    if stacked:
-        for name in layer_stacks(params.cfg):
-            tree[name] = tree_map(lambda *a: np.stack(a), *tree[name])
+    if stacked or params.cfg.family in ("ssm", "hybrid"):
+        for path in layer_stacks(params.cfg):
+            tree_put(tree, path, tree_map(lambda *a: np.stack(a), *tree_get(tree, path)))
     return tree
 
 
@@ -161,14 +171,19 @@ def adamw_state_from_numpy(cfg: ArchConfig, state, *, device=None) -> AdamWState
     state)``): the step as an int, ``m`` and ``v`` in their own dtypes
     (bfloat16 by its bits) and structure (factored ``{row, col}`` dicts
     kept).  The layers' layout must be ``cfg``'s: stacked ``[L, ...]``
-    leaves with ``scan_layers``, else a list of block dicts."""
+    leaves where the reference stacks them (``scan_layers``, and always
+    for the ssm and hybrid families), else a list of block dicts."""
+    from repro_torch.models.model import layer_stacks, scanned, tree_get
     from repro_torch.train.optimizer import AdamWState
     dev = resolve_device(device)
     step, m, v = state
     for tree in (m, v):
-        if isinstance(tree["layers"], dict) != cfg.scan_layers:
-            raise ValueError(f"the state's layers are {type(tree['layers']).__name__}s; "
-                             f"{cfg.name} has scan_layers={cfg.scan_layers}")
+        for path in layer_stacks(cfg):
+            layers = tree_get(tree, path)
+            if isinstance(layers, dict) != scanned(cfg):
+                raise ValueError(f"the state's {'/'.join(path)} are "
+                                 f"{type(layers).__name__}s; {cfg.name} (scan_layers="
+                                 f"{cfg.scan_layers}) stacks them: {scanned(cfg)}")
     to = lambda a: _tensor(a, dev)  # noqa: E731
     return AdamWState(step=int(np.asarray(step)), m=tree_map(to, m), v=tree_map(to, v))
 
@@ -176,14 +191,18 @@ def adamw_state_from_numpy(cfg: ArchConfig, state, *, device=None) -> AdamWState
 def kv_cache_from_numpy(cache, *, device=None) -> dict:
     """A stacked cache as ``init_cache``/``decode_step`` lay it out, on
     ``device`` in its own dtypes: the dense family's ``{k, v}`` ([L, B, S,
-    Hkv, dh] each), or the MoE family's ``{"dense": {ckv, krope} or None,
+    Hkv, dh] each), the MoE family's ``{"dense": {ckv, krope} or None,
     "moe": {ckv, krope}}`` of MLA latents ([L, B, S, r] and [L, B, S,
-    dr])."""
+    dr]), the ssm family's ``{state, x_time, x_chan}`` (the state
+    float32), or the hybrid family's ``{"ssm": {state, conv}, "shared":
+    {k, v} or ()}``."""
     dev = resolve_device(device)
 
     def one(c):
         if isinstance(c, dict):
             return {name: one(part) for name, part in c.items()}
+        if isinstance(c, tuple):
+            return tuple(one(part) for part in c)
         return None if c is None else _tensor(c, dev)
 
     return one(cache)

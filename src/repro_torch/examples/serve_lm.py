@@ -4,10 +4,12 @@
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --arch deepseek_7b --requests 8
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu --arch deepseek_v2_lite_16b
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu --arch rwkv6_3b
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu --arch zamba2_2p7b
 
-Reduced configs, as the reference's; on ``--device`` (default cuda).  The
-dense and MoE families are ported; the other text families raise
-``NotImplementedError`` (ROADMAP.md §1).
+Reduced configs, as the reference's; on ``--device`` (default cuda).  Every
+text family is ported (dense, MoE, ssm and hybrid); the audio and vlm
+archs exit, as the reference's example does.
 """
 from __future__ import annotations
 

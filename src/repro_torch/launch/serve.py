@@ -3,10 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_7b --requests 6
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch deepseek_7b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch deepseek_v2_lite_16b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch rwkv6_3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch zamba2_2p7b
 
-Runs on cuda unless ``--device cpu`` is given.  The dense and MoE families
-are ported; the other families raise ``NotImplementedError`` (ROADMAP.md
-§1).
+Runs on cuda unless ``--device cpu`` is given.  The dense, MoE, ssm and
+hybrid families are ported; the audio and vlm families raise
+``NotImplementedError`` (ROADMAP.md §1).
 """
 from __future__ import annotations
 

@@ -3,14 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_7b --steps 20 --reduced
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch phi4_mini_3p8b --reduced
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch deepseek_v2_lite_16b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch rwkv6_3b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch zamba2_2p7b --reduced
 
 Wires an architecture, its token pipeline and the fault-tolerant Trainer
 together on ``--device`` (default cuda).  ``--data_parallel`` or
 ``--model_parallel`` above 1 raises ``NotImplementedError``: the mesh, the
 sharding rules and the pipeline come with multi-device training
-(ROADMAP.md §1 item 2, slice 2b).  The dense and MoE families are ported;
-the others (the vlm and audio pipelines' among them) raise as
-``build_model`` does.
+(ROADMAP.md §1 item 2, slice 2b).  The dense, MoE, ssm and hybrid
+families are ported; the audio and vlm families (and their pipelines)
+raise as ``build_model`` does.
 """
 from __future__ import annotations
 

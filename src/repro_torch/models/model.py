@@ -1,5 +1,6 @@
 """Top-level model API: ``build_model(cfg)`` -> init / loss / prefill /
-decode: port of ``repro/models/model.py`` for the dense and MoE families.
+decode: port of ``repro/models/model.py`` for the dense, MoE, ssm and
+hybrid families.
 
     model = build_model(get_config("deepseek_7b"))          # on cuda
     params = model.init(torch.Generator("cuda").manual_seed(0))
@@ -18,51 +19,87 @@ The families:
   adds ``aux_loss_weight`` times the summed aux load-balance loss and
   ``mtp_loss_weight`` times the MTP loss.  As in the reference, the MTP
   term belongs to this family alone: a dense config with ``mtp=True``
-  trains on the plain LM loss.
+  trains on the plain LM loss;
+* ``ssm``: RWKV-6 blocks, attention-free (rwkv6_3b); the decode cache is
+  recurrent state (``models/rwkv.py``);
+* ``hybrid``: Mamba-2 blocks with one shared attention block applied every
+  ``shared_stride`` layers (zamba2_2p7b; ``models/ssm.py`` and
+  ``transformer.hybrid_forward``).
 
 ``build_model`` returns the reference's namespace (``cfg``, ``init``,
 ``loss_fn``, ``prefill``, ``decode_step``, ``init_cache``, plus ``device``),
 so ``serve.engine.ServeEngine`` and ``train.trainer.Trainer`` read the same
 in both packages.  ``params`` is a :class:`DecoderLM`: an ``nn.Module``
 holding the reference's parameter tree as ``nn.Parameter`` objects in
-``param_dtype`` (the MoE router in float32).  Every call casts the float
-parameters to ``compute_dtype`` (as the reference does) and embeds from
-the cast table; ``prefill`` and ``decode_step`` run under
-``torch.no_grad``, ``loss_fn`` differentiates back through the cast to the
-stored parameters.  ``input_specs`` comes with the dry-run launcher; the
-other families raise ``NotImplementedError`` (ROADMAP.md §1 item 2).
+``param_dtype`` (the MoE router, RWKV's ``w0`` and ``u`` and Mamba's
+``dt_bias``, ``a_log`` and ``d_skip`` in float32).  Every call casts the
+float parameters to ``compute_dtype`` (as the reference does, those
+float32 leaves too) and embeds from the cast table; ``prefill`` and
+``decode_step`` run under ``torch.no_grad``, ``loss_fn`` differentiates
+back through the cast to the stored parameters.  ``input_specs`` comes
+with the dry-run launcher; the audio and vlm families raise
+``NotImplementedError`` (ROADMAP.md §1 item 2).
 """
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.layers import init_dense, rms_norm
 from repro_torch.models.mla import init_mla_cache
-from repro_torch.models.transformer import block_forward, init_block, init_stack, stack_forward
+from repro_torch.models.rwkv import init_rwkv, init_rwkv_cache, rwkv_block
+from repro_torch.models.transformer import (
+    block_forward, hybrid_forward, init_block, init_hybrid, init_hybrid_cache, init_stack,
+    stack_forward, stacked_cache,
+)
 from repro_torch.tree import Stacked, tree_map
 
 NOT_PORTED = {
-    "ssm": "ROADMAP.md §1 item 2, slice 3 (the other families: rwkv, ssm)",
-    "hybrid": "ROADMAP.md §1 item 2, slice 3 (the other families: ssm)",
     "audio": "ROADMAP.md §1 item 2, slice 3 (the other families: audio cross-attention)",
     "vlm": "ROADMAP.md §1 item 2, slice 3 (the other families: vlm patches)",
 }
 
 
-def layer_stacks(cfg: ArchConfig) -> dict[str, int]:
-    """The parameter tree's layer stacks and their depths: ``layers`` for
-    the dense family; ``dense_layers`` (when ``first_dense_layers``) and
-    ``layers`` (the MoE blocks) for the MoE family."""
+def layer_stacks(cfg: ArchConfig) -> dict[tuple[str, ...], int]:
+    """The parameter tree's layer stacks, by their path in the tree, and
+    their depths: ``layers`` for the dense and ssm families;
+    ``dense_layers`` (when ``first_dense_layers``) and ``layers`` (the MoE
+    blocks) for the MoE family; ``layers/mamba`` for the hybrid family
+    (whose ``layers/shared`` is one block, not a stack)."""
+    if cfg.family == "hybrid":
+        return {("layers", "mamba"): cfg.n_layers}
     if cfg.family != "moe":
-        return {"layers": cfg.n_layers}
+        return {("layers",): cfg.n_layers}
     nd = cfg.moe.first_dense_layers
-    return {**({"dense_layers": nd} if nd else {}), "layers": cfg.n_layers - nd}
+    return {**({("dense_layers",): nd} if nd else {}), ("layers",): cfg.n_layers - nd}
+
+
+def scanned(cfg: ArchConfig) -> bool:
+    """Whether the reference stacks the layers ``[L, ...]``: under
+    ``cfg.scan_layers``, and always for the ssm and hybrid families (their
+    stacks are built by ``vmap`` and scanned whatever ``scan_layers``
+    says)."""
+    return cfg.scan_layers or cfg.family in ("ssm", "hybrid")
+
+
+def tree_get(tree, path: tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def tree_put(tree: dict, path: tuple[str, ...], value) -> None:
+    """``tree[path] = value``, the dicts on the way made as needed."""
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
 
 
 class _Tree(nn.Module):
@@ -94,8 +131,9 @@ class DecoderLM(nn.Module):
     unless tied, each of :func:`layer_stacks`'s stacks a list of block
     dicts with ``[in, out]`` weights or the scanned layout: one block dict
     whose leaves are ``[L, ...]`` tensors or
-    :class:`~repro_torch.tree.Stacked`; and the MoE family's ``mtp`` module
-    when ``cfg.mtp``); :meth:`tree` gives it back with lists of layers,
+    :class:`~repro_torch.tree.Stacked`; the MoE family's ``mtp`` module
+    when ``cfg.mtp``; the hybrid family's ``layers/shared`` block when
+    ``shared_stride``); :meth:`tree` gives it back with lists of layers,
     :meth:`reference_tree` in the reference's own layout.  Not called
     itself: ``build_model``'s functions take it as ``params``.  The
     parameters are frozen (``requires_grad=False``) until a caller trains
@@ -107,20 +145,34 @@ class DecoderLM(nn.Module):
         self.embedding = nn.Parameter(tree["embed"]["embedding"])
         self.final_ln = nn.Parameter(tree["final_ln"])
         self.unembed = None if cfg.tie_embeddings else nn.Parameter(tree["unembed"])
-        for name, depth in layer_stacks(cfg).items():
-            layers = tree[name]
+        for path, depth in layer_stacks(cfg).items():
+            layers = tree_get(tree, path)
             if isinstance(layers, dict):
                 layers = [tree_map(lambda a, i=i: a[i], layers,
                                    is_leaf=lambda x: isinstance(x, Stacked))
                           for i in range(depth)]
-            self.add_module(name, nn.ModuleList(_Tree(layer) for layer in layers))
+            parent = self
+            for key in path[:-1]:                  # the hybrid's `layers` holds two parts
+                if key not in parent._modules:
+                    parent.add_module(key, nn.Module())
+                parent = getattr(parent, key)
+            parent.add_module(path[-1], nn.ModuleList(_Tree(layer) for layer in layers))
+        if self._shared(cfg):
+            self.layers.add_module("shared", _Tree(tree["layers"]["shared"]))
         self.mtp = _Tree(tree["mtp"]) if cfg.family == "moe" and cfg.mtp else None
         self.requires_grad_(False)
 
+    @staticmethod
+    def _shared(cfg: ArchConfig) -> bool:
+        return cfg.family == "hybrid" and bool(cfg.ssm.shared_stride)
+
     def tree(self) -> dict:
         out = {"embed": {"embedding": self.embedding}, "final_ln": self.final_ln}
-        for name in layer_stacks(self.cfg):
-            out[name] = [layer.tree() for layer in getattr(self, name)]
+        for path in layer_stacks(self.cfg):
+            stack = functools.reduce(getattr, path, self)
+            tree_put(out, path, [layer.tree() for layer in stack])
+        if self._shared(self.cfg):
+            out["layers"]["shared"] = self.layers.shared.tree()
         if self.unembed is not None:
             out["unembed"] = self.unembed
         if self.mtp is not None:
@@ -128,14 +180,15 @@ class DecoderLM(nn.Module):
         return out
 
     def reference_tree(self) -> dict:
-        """The tree in the reference's layout: with ``cfg.scan_layers``,
-        each layer stack is one block dict whose leaves are ``Stacked``
-        (the L per-layer parameters of each stacked leaf); else the list.
-        The optimizer's state and the checkpoints follow this layout."""
+        """The tree in the reference's layout: where the reference stacks
+        the layers (:func:`scanned`), each layer stack is one block dict
+        whose leaves are ``Stacked`` (the L per-layer parameters of each
+        stacked leaf); else the list.  The optimizer's state and the
+        checkpoints follow this layout."""
         out = self.tree()
-        if self.cfg.scan_layers:
-            for name in layer_stacks(self.cfg):
-                out[name] = tree_map(lambda *ps: Stacked(ps), *out[name])
+        if scanned(self.cfg):
+            for path in layer_stacks(self.cfg):
+                tree_put(out, path, tree_map(lambda *ps: Stacked(ps), *tree_get(out, path)))
         return out
 
     # a checkpoint saves the reference's layout (Stacked leaves are stacked
@@ -163,20 +216,22 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
-    """The dense or MoE family's training and serving functions on
-    ``device`` (default cuda)."""
-    if cfg.family not in ("dense", "moe"):
+    """The dense, MoE, ssm or hybrid family's training and serving
+    functions on ``device`` (default cuda)."""
+    if cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: {NOT_PORTED[cfg.family]}")
     dev = resolve_device(device)
     dtype = cfg.cdtype()
     pdtype = cfg.pdtype()
-    moe = cfg.family == "moe"
+    fam = cfg.family
+    moe = fam == "moe"
 
     def init(gen: torch.Generator) -> DecoderLM:
         """Fresh parameters drawn from ``gen``, which must live on the
         model's device: embedding, unembed, then each stack's layers in
-        order, then the MTP module."""
+        order (the hybrid's shared block after its Mamba layers), then the
+        MTP module."""
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
         d = cfg.d_model
@@ -186,10 +241,16 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
         }
         if not cfg.tie_embeddings:
             tree["unembed"] = init_dense(gen, (d, cfg.vocab_size), pdtype)
-        for name, depth in layer_stacks(cfg).items():
-            dense = name == "dense_layers" or not moe
-            tree[name] = init_stack(gen, cfg, depth, pdtype, kind="dense" if dense else "moe",
-                                    d_ff=cfg.moe.dense_d_ff if moe and dense else None)
+        if fam == "ssm":
+            tree["layers"] = [init_rwkv(gen, cfg, pdtype) for _ in range(cfg.n_layers)]
+        elif fam == "hybrid":
+            tree["layers"] = init_hybrid(gen, cfg, pdtype)
+        else:
+            for (name,), depth in layer_stacks(cfg).items():
+                dense = name == "dense_layers" or not moe
+                tree[name] = init_stack(gen, cfg, depth, pdtype,
+                                        kind="dense" if dense else "moe",
+                                        d_ff=cfg.moe.dense_d_ff if moe and dense else None)
         if moe and cfg.mtp:
             tree["mtp"] = {
                 "proj": init_dense(gen, (2 * d, d), pdtype),
@@ -221,7 +282,20 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
 
     def _backbone(p: dict, x: torch.Tensor, positions: torch.Tensor, *, cache=None,
                   cache_pos=None):
-        """(hidden, the MoE blocks' summed aux loss)."""
+        """(hidden, the MoE blocks' summed aux loss; 0 for the others)."""
+        if fam == "ssm":
+            remat = cache is None and cfg.remat and torch.is_grad_enabled()
+            for i, layer in enumerate(p["layers"]):
+                if remat:
+                    x, _ = checkpoint(rwkv_block, layer, x, cfg, use_reentrant=False)
+                else:
+                    x, _ = rwkv_block(layer, x, cfg, cache=None if cache is None else
+                                      {n: c[i] for n, c in cache.items()})
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        if fam == "hybrid":
+            x, _ = hybrid_forward(p["layers"], x, positions, cfg, cache=cache,
+                                  cache_pos=cache_pos)
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
         if not moe:
             return stack_forward(p["layers"], x, positions, cfg, cache=cache,
                                  cache_pos=cache_pos)
@@ -287,22 +361,28 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
         return _head(p, h)[:, 0], cache
 
     def init_cache(batch: int, seq: int) -> dict:
-        """Zeros in the compute dtype: the stacked per-layer cache, ``{k, v}``
-        ([L, batch, seq, Hkv, dh]) or MLA's latent ``{ckv [L, batch, seq,
-        r], krope [L, batch, seq, dr]}``; for the MoE family ``{"dense":
-        the first dense layers' or None, "moe": the MoE layers'}``."""
-        one = init_mla_cache if cfg.attention == "mla" else init_kv_cache
-        layer = one(cfg, batch, seq, dtype, device="meta")
-
-        def stacked(depth: int) -> dict:
-            return {k: torch.zeros((depth, *v.shape), dtype=dtype, device=dev)
-                    for k, v in layer.items()}
-
+        """Zeros, each leaf in its reference dtype: the stacked per-layer
+        cache, ``{k, v}`` ([L, batch, seq, Hkv, dh]) or MLA's latent ``{ckv
+        [L, batch, seq, r], krope [L, batch, seq, dr]}`` in the compute
+        dtype; for the MoE family ``{"dense": the first dense layers' or
+        None, "moe": the MoE layers'}``; for the ssm family RWKV's
+        recurrent ``{state [L, batch, H, P, P] float32, x_time, x_chan [L,
+        batch, D]}``; for the hybrid family ``{"ssm": {state [L, batch, H,
+        N, P] float32, conv [L, batch, W - 1, d_inner]}, "shared": {k, v}
+        [apps, batch, seq, Hkv, dh] or ()}``."""
+        if fam == "hybrid":
+            return init_hybrid_cache(cfg, batch, seq, dtype, device=dev)
+        if fam == "ssm":
+            layer = init_rwkv_cache(cfg, batch, dtype, device="meta")
+        else:
+            one = init_mla_cache if cfg.attention == "mla" else init_kv_cache
+            layer = one(cfg, batch, seq, dtype, device="meta")
         if not moe:
-            return stacked(cfg.n_layers)
+            return stacked_cache(cfg.n_layers, layer, dev)
         stacks = layer_stacks(cfg)
-        return {"dense": stacked(stacks["dense_layers"]) if "dense_layers" in stacks else None,
-                "moe": stacked(stacks["layers"])}
+        return {"dense": stacked_cache(stacks[("dense_layers",)], layer, dev)
+                if ("dense_layers",) in stacks else None,
+                "moe": stacked_cache(stacks[("layers",)], layer, dev)}
 
     return SimpleNamespace(cfg=cfg, device=dev, init=init, loss_fn=loss_fn, prefill=prefill,
                            decode_step=decode_step, init_cache=init_cache)

@@ -1,5 +1,5 @@
-"""Layer stacks: port of ``repro/models/transformer.py`` for the dense and
-MoE blocks.
+"""Layer stacks: port of ``repro/models/transformer.py`` for the dense,
+MoE and hybrid (zamba2-like) stacks.
 
 The reference scans a stacked ``[L, ...]`` parameter pytree with optional
 remat; the port keeps one parameter dict a layer and loops over them in
@@ -7,8 +7,8 @@ Python.  ``cfg.remat`` wraps each block in
 ``torch.utils.checkpoint.checkpoint`` when gradients are on (the
 reference's ``jax.checkpoint`` of the scan body): the backward keeps each
 block's input and recomputes the rest, the MoE block's aux loss among its
-outputs.  The enc-dec and hybrid blocks come with the other families
-(ROADMAP.md §1 item 2, slice 3).
+outputs.  The enc-dec block comes with the audio family (ROADMAP.md §1
+item 2, slice 3).
 """
 from __future__ import annotations
 
@@ -16,10 +16,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import attention_block, init_attention
+from repro_torch.models.attention import attention_block, init_attention, init_kv_cache
 from repro_torch.models.layers import init_dense, rms_norm, swiglu
 from repro_torch.models.mla import init_mla, mla_block
 from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.models.ssm import init_mamba, init_ssm_cache, mamba_block
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, *,
@@ -87,3 +88,79 @@ def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchCon
         if aux is not None:
             aux_sum = aux_sum + aux
     return x, aux_sum
+
+
+# ---------------------------------------------------------------------------
+# hybrid (zamba2-like): Mamba-2 layers + one shared attention block
+# ---------------------------------------------------------------------------
+
+def init_hybrid(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> dict:
+    """``{"mamba": L Mamba-2 block dicts, "shared": one dense block of width
+    cfg.ssm.shared_d_ff}`` (no ``shared`` when ``shared_stride`` is 0).
+    The reference stacks ``mamba`` by ``vmap``; the port keeps the list."""
+    p = {"mamba": [init_mamba(gen, cfg, dtype) for _ in range(cfg.n_layers)]}
+    if cfg.ssm.shared_stride:
+        p["shared"] = init_block(gen, cfg, dtype, kind="dense", d_ff=cfg.ssm.shared_d_ff)
+    return p
+
+
+def n_shared_apps(cfg: ArchConfig) -> int:
+    """How often the shared block runs: after each Mamba layer whose index
+    is a multiple of ``shared_stride``."""
+    s = cfg.ssm.shared_stride
+    return 0 if not s else (cfg.n_layers + s - 1) // s
+
+
+def _hybrid_layer(layer, shared, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
+                  idx: int, cache=None, cache_pos=None):
+    """Mamba layer ``idx``, then the shared block when ``idx % stride ==
+    0`` (the reference's ``lax.cond``), reading and writing KV cache
+    ``idx // stride`` of ``cache["shared"]`` in place."""
+    x, _ = mamba_block(layer, x, cfg,
+                       cache=None if cache is None else {n: c[idx] for n, c in
+                                                         cache["ssm"].items()})
+    stride = cfg.ssm.shared_stride
+    if stride and idx % stride == 0:
+        app = idx // stride
+        kv = None if cache is None else {n: c[app] for n, c in cache["shared"].items()}
+        x, _ = block_forward(shared, x, positions, cfg, kind="dense", cache=kv,
+                             cache_pos=cache_pos)
+    return x
+
+
+def hybrid_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, *,
+                   cache=None, cache_pos=None):
+    """The Mamba layers in order, the shared block after every
+    ``shared_stride``-th.  ``cache`` is ``{"ssm": {state [L, B, H, N, P],
+    conv [L, B, W - 1, d_inner]}, "shared": {k, v [apps, B, S, Hkv, dh]}
+    (or () without a shared block)}``, written in place; or None.  Each
+    layer (with its shared application) is rematerialised in the backward
+    when ``cfg.remat`` and gradients are on.  Returns (x, cache)."""
+    remat = cache is None and cfg.remat and torch.is_grad_enabled()
+    shared = params.get("shared")
+    for idx, layer in enumerate(params["mamba"]):
+        if remat:
+            x = checkpoint(_hybrid_layer, layer, shared, x, positions, cfg, idx,
+                           use_reentrant=False)
+        else:
+            x = _hybrid_layer(layer, shared, x, positions, cfg, idx, cache, cache_pos)
+    return x, cache
+
+
+def stacked_cache(depth: int, layer: dict, device) -> dict:
+    """Zeros of ``depth`` stacked copies of one layer's cache (a dict of
+    tensors, e.g. on the meta device), each leaf in its own dtype."""
+    return {k: torch.zeros((depth, *v.shape), dtype=v.dtype, device=device)
+            for k, v in layer.items()}
+
+
+def init_hybrid_cache(cfg: ArchConfig, batch: int, seq: int, dtype: torch.dtype,
+                      device=None) -> dict:
+    """Zeros: the Mamba layers' stacked caches (``state`` float32, ``conv``
+    in ``dtype``) and the shared block's stacked KV caches, one an
+    application, in ``dtype`` (``()`` without a shared block)."""
+    apps = n_shared_apps(cfg)
+    return {"ssm": stacked_cache(cfg.n_layers, init_ssm_cache(cfg, batch, dtype, device="meta"),
+                                 device),
+            "shared": stacked_cache(apps, init_kv_cache(cfg, batch, seq, dtype, device="meta"),
+                                    device) if apps else ()}

@@ -5,7 +5,12 @@ A fixed pool of batch slots steps through ``decode_step`` together; slots
 whose sequence finished (EOS or max tokens) are refilled from the request
 queue between steps — the standard continuous-batching loop (vLLM-style).
 A refilled slot is prefilled by decode: its prompt goes in one token a
-tick from position 0, over the old rows of its cache, which the mask hides.
+tick from position 0.  Its row (dim 1) of every cache leaf is zeroed first:
+a KV cache's old rows would stay hidden by the mask anyway, but a recurrent
+state (the ssm and hybrid families) would carry the previous request over.
+The reference's engine resets only the position and the token, so it
+serves such a slot wrong tokens (ROADMAP.md §3); for a request that starts
+in a fresh slot the two engines give the same tokens.
 
     model = build_model(get_config("deepseek_7b"))        # on cuda
     engine = ServeEngine(model, batch_slots=8, max_seq=512)
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -82,6 +88,10 @@ class ServeEngine:
                         break
                     req = self.queue.popleft()
                 self.active[s] = req
+                # a fresh slot: no state of the request that left it
+                for leaf in tree_leaves(self.cache):
+                    if isinstance(leaf, torch.Tensor):
+                        leaf[:, s].zero_()
                 # prefill-by-decode: feed prompt tokens one at a time into
                 # this slot's cache rows (keeps a single step function)
                 self.pos[s] = 0

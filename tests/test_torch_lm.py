@@ -30,11 +30,12 @@ from repro_torch.configs.base import param_count  # noqa: E402
 from repro_torch.convert import kv_cache_from_numpy, lm_params_from_numpy  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.models import attention, layers  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.model import DecoderLM, build_model  # noqa: E402
 
 DENSE = ["deepseek_7b", "phi4_mini_3p8b", "minitron_8b"]
 NOT_PORTED = [a for a in configs.ARCH_IDS
-              if configs.get_config(a).family not in ("dense", "moe")]
+              if configs.get_config(a).family in model_mod.NOT_PORTED]
 BF16_EPS = 2.0**-7
 B, S = 2, 16
 

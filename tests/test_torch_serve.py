@@ -182,8 +182,6 @@ def test_serve_lm_example(capsys):
     done = serve_lm.main(["--device", "cpu", "--arch", "phi4_mini_3p8b", "--requests", "5"])
     assert len(done) == 5 and all(len(r.generated) == 16 for r in done)
     assert "5 requests, 80 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve_lm.main(["--device", "cpu", "--arch", "rwkv6_3b"])
     with pytest.raises(SystemExit, match="text archs"):
         serve_lm.main(["--device", "cpu", "--arch", "whisper_tiny"])
 
