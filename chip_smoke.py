@@ -8,6 +8,7 @@
     python3 chip_smoke.py --train-only     # phases 1, 2 and 18 (the LM training path only)
     python3 chip_smoke.py --moe-only       # phases 1, 2 and 19 (the MoE family only)
     python3 chip_smoke.py --recurrent-only # phases 1, 2, 20 and 21 (the ssm and hybrid families)
+    python3 chip_smoke.py --multimodal-only # phases 1, 2, 22 and 23 (the audio and vlm families)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -224,7 +225,7 @@ result line):
                chunked_attention and through the plain attention core,
                each within LM_BF16_REL of the logits' scale of the float32
                model and of each other; the bf16 prefill timed.  (c)
-               ServeEngine(slots=8, max_seq=512) in bf16 over 16 requests
+               ServeEngine(slots=8, max_seq=512) in bf16 over 9 requests
                (prompts of 64-192 seeded tokens, 64 new tokens each): all
                complete inside the vocabulary; one request served alone
                gives its pooled run's first logits (LM_ALONE_REL); prints
@@ -297,7 +298,7 @@ result line):
                rtol 1e-3 / atol 1e-4 and the same argmax.  (b) bf16
                storage and compute at the published capacity_factor
                1.25 (each expert takes one token a tick at 8 slots):
-               ServeEngine(slots=8, max_seq=512) over 16 requests (prompts
+               ServeEngine(slots=8, max_seq=512) over 8 requests (prompts
                of 64-192 seeded tokens, 64 new tokens each), all complete
                inside the vocabulary; prints the median decode tick
                against its byte bound, generated tokens/s, peak GiB and
@@ -330,7 +331,7 @@ result line):
                of 2 x 64 tokens (the chunked WKV) against 64 decode steps
                (the one-step recurrence), last logits within rtol 1e-3 /
                atol 1e-4 and the same argmax.  (b) bf16 compute:
-               ServeEngine(slots=8, max_seq=512) over phase 17's 16
+               ServeEngine(slots=8, max_seq=512) over phase 17's 9
                requests, all complete inside the vocabulary; request 8,
                which enters a slot another request left, served alone
                gives its pooled first logits to two bf16 epsilons (the
@@ -365,6 +366,57 @@ result line):
                gradient to x, B, C, dt, a_log against float64 autograd
                through the sequential recurrence within 1e-4 of each
                one's scale, the gradient finite.
+22. audio    -- (right after phase 21, its model freed) the audio family:
+               whisper_tiny at full width and depth (4 encoder + 4
+               decoder layers, d_model 384, 6 heads of 64, d_ff 1 536,
+               1 500 frames, vocab 51 865, tied; 41 157 888 parameters),
+               the frontend a stub (frames [B, 1 500, 384] drawn from a
+               seed), float32 storage.  (a) float32: prefill of 2 x 64
+               tokens over the frames against 64 decode steps with the
+               cache's cross pair filled by _cross_kv(_encoder(frames)),
+               last logits within rtol 1e-3 / atol 1e-4 and the same
+               argmax; against the zero cross pair (the reference's
+               serving state: nothing fills it) the gap must be over 100x
+               larger.  (b) bf16 compute: 16 requests drawn as phase 17's
+               through ServeEngine(slots=8, max_seq=512), text only as in the
+               reference (the cross pair stays zero); the median tick
+               against its byte bound (8 B a parameter for the cast, the
+               self cache and the 73.7 MB cross pair), tokens/s, host
+               share, peak.  (c) FrontendPipeline frames [4, 1 500, 384]
+               and 448 text tokens (whisper's decoder context) through
+               Trainer.run for 4 steps: losses finite, the first bit for
+               bit with loss_fn apart; step ms, tokens/s, peak.  (d) the
+               encoder's non-causal chunked_attention at B 4, 1 500 keys
+               (padded to 1 536), forward and backward against float64
+               autograd (AUDIO_ATTN_REL), the padding counted as keys a
+               planted fault beyond it; the reduced whisper's float32
+               loss and prefill, card against CPU (rtol 1e-4).  Cuts:
+               train batch 4 and 4 steps.
+23. vlm      -- (right after phase 22) the vlm family: llava_next_34b at
+               full width (60 layers, d_model 7 168, 56 query heads over
+               8 KV heads of 128, d_ff 20 480, vocab 64 000, 2 880 patches
+               [B, 2 880, 7 168] drawn from a seed; 34 388 917 248
+               parameters).  (a) float32 at 8 layers (5.38 B parameters,
+               21.5 GB): decode of 2 x 64 text tokens against the
+               text-alone prefill of the same weights (rtol 1e-3 / atol
+               1e-4, argmax); the prefill of 2 880 patches + 64 tokens
+               finite and away from the text alone's; bf16 compute's
+               within LM_BF16_REL of float32's scale.  (b) full depth in
+               bf16 storage (68.78 GB): that prefill at batch 1 timed
+               against its FLOP bound at 989 TFLOP/s; then 8 requests
+               drawn as phase 17's are (64-192 prompt tokens, 64 new)
+               through ServeEngine(slots=8, max_seq=512), text only as in
+               the reference (one wave, no refill): the tick against its
+               byte bound
+               (2 B a parameter and the 1.0 GB cache), tokens/s, host
+               share, peak.  (c) 2 layers, float32 storage: 2 x (2 880
+               patches + 128 tokens) through Trainer.run for 4 steps,
+               the first loss bit for bit; step ms, positions/s, peak.
+               (d) the reduced llava's float32 loss and prefill, card
+               against CPU.  Cuts: (a)'s depth 60 -> 8 (float32 storage
+               at 60 is 137.6 GB), (b)'s storage float32 -> bf16 and its
+               requests 16 -> 8 (time), (c)'s depth 60 -> 2, batch 2 and
+               4 steps.
 
 Every kernel must be launched by at least one of the two fits.  Each
 driven path (the two fits, the service, the sharded fit, the mouse
@@ -2703,7 +2755,10 @@ LM_ARCH = "deepseek_7b"
 LM_DECODE = (2, 64)           # (a) batch x tokens: prefill against decode, float32
 LM_LONG = 1300                # (b), (e) prompt: three chunks of 512, the last ragged
 LM_SLOTS, LM_MAX_SEQ = 8, 512
-LM_REQUESTS, LM_NEW = 16, 64
+# 9 requests: the ninth enters a slot the first to finish left (278
+# ticks; 16 requests took 461, which the script's 1 200 s could not hold
+# beside phases 22-23)
+LM_REQUESTS, LM_NEW = 9, 64
 LM_PROMPT = (64, 192)         # prompt lengths drawn from [64, 192]
 LM_ALONE_RID = 8              # the first admitted after the first wave: into a slot another left
 LM_PROFILE_AT = 100           # the served tick that opens the profiled window (8 slots busy)
@@ -2956,7 +3011,7 @@ def phase_lm(smi: str) -> dict:
     out["prefill_errs"] = errs
     del chunked, plain, ref
 
-    # (c) serving in bf16: 16 requests through 8 slots
+    # (c) serving in bf16: LM_REQUESTS requests through 8 slots
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, vocab, int(n)).tolist()
                for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
@@ -3097,16 +3152,18 @@ TRAIN_ATTN_REL = {"float32": 1e-4, "bfloat16": 2 * 2.0**-7}
 DRILL_BATCH, DRILL_SEQ, DRILL_STEPS, DRILL_CKPT, DRILL_FAIL = 8, 256, 8, 2, 5
 
 
-def attention64(q, k, v):
-    """Plain causal softmax attention in float64 (GQA by repeating K and V),
-    the reference the custom backward is held against."""
+def attention64(q, k, v, causal: bool = True):
+    """Plain softmax attention in float64 (GQA by repeating K and V), the
+    reference the custom backward is held against."""
     from repro_torch.models.layers import _repeat_kv
     n_rep = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     s = q.shape[1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    probs = torch.softmax(logits.masked_fill(~mask, -torch.inf), dim=-1)
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -3413,7 +3470,7 @@ def phase_train(smi: str) -> dict:
 MOE_ARCH = "deepseek_v2_lite_16b"
 MOE_DECODE = (2, 64)          # (a) batch x tokens: prefill against decode, float32
 MOE_SLOTS, MOE_MAX_SEQ = 8, 512
-MOE_REQUESTS, MOE_NEW = 16, 64
+MOE_REQUESTS, MOE_NEW = 8, 64    # one wave (236 ticks; 16 took 461, too long beside 22-23)
 MOE_PROMPT = (64, 192)        # prompt lengths drawn from [64, 192]
 MOE_TRAIN_LAYERS = 4          # (c): one dense layer, three MoE layers
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 1024, 4
@@ -3607,7 +3664,7 @@ def phase_moe(smi: str) -> dict:
     del params, cache, logits, want, m32
     free_card()
 
-    # (b) serving in bf16 at the published capacity factor: 16 requests through 8 slots
+    # (b) serving in bf16 at the published capacity factor: one wave through 8 slots
     cfg16 = moe_config(full, param_dtype="bfloat16")
     m16 = build_model(cfg16)
     params = m16.init(torch.Generator(dev).manual_seed(0))
@@ -4032,7 +4089,7 @@ def phase_recurrent(smi: str, arch: str) -> dict:
     elif out["f32"]["scale"] == 0:
         fail(f"{tag} (a): every logit is 0")
 
-    # (b) serving in bf16: phase 17's 16 requests through 8 slots; request
+    # (b) serving in bf16: phase 17's requests through 8 slots; request
     # LM_ALONE_RID, the ninth, enters a slot another request left
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, vocab, int(n)).tolist()
@@ -4160,6 +4217,448 @@ def phase_recurrent(smi: str, arch: str) -> dict:
     return out
 
 
+# Phases 22 and 23: the two multimodal families, each frontend a stub as
+# in the reference (frames or patches come in as [B, n, d_model]
+# embeddings, drawn from a seed).  whisper_tiny (audio): 4 encoder + 4
+# decoder layers, d_model 384, 6 heads of 64, d_ff 1 536, 1 500 frames,
+# vocab 51 865, tied; 41 157 888 parameters.  llava_next_34b (vlm): 60
+# layers, d_model 7 168, 56 query heads over 8 KV heads of 128, d_ff
+# 20 480, vocab 64 000, 2 880 patches; 34 388 917 248 parameters (68.78 GB
+# in bf16 storage, 137.6 GB in float32).
+AUDIO_ARCH, VLM_ARCH = "whisper_tiny", "llava_next_34b"
+AUDIO_DECODE = (2, 64)        # (a) batch x text tokens: prefill against decode, float32
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ, AUDIO_TRAIN_STEPS = 4, 448, 4   # 448: whisper's text context
+VLM_F32_LAYERS = 8            # (a): 5.38 B parameters, 21.5 GB in float32
+VLM_TEXT = 64                 # text tokens after the 2 880 patches
+# (b)'s serving runs: whisper's 16 requests drawn as phase 17's are (461
+# ticks of ~11 ms); llava's 8, one wave through the 8 slots (236 ticks of
+# ~130 ms: 16 took 56.5 s, which the script's 1 200 s could not hold
+# beside phases 3-21)
+AUDIO_REQUESTS, VLM_REQUESTS = 16, 8
+VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH, VLM_TRAIN_TEXT, VLM_TRAIN_STEPS = 2, 2, 128, 4
+# The encoder's attention, forward and backward, against float64: float32
+# sums 1 500 terms a row in other orders (1e-4 leaves a wide margin over
+# its ~1e-6); the planted fault (the 36 padded keys counted as real) must
+# exceed it.
+AUDIO_ATTN_REL = 1e-4
+
+
+def tick_bounds(param_bytes: float, cache_bytes: float) -> dict:
+    """The least time of one decode tick on this card, by bytes (ms): the
+    parameters' bytes as the tick moves them and every cache leaf read
+    once."""
+    return dict(params_ms=param_bytes / PEAK_HBM_BYTES * 1e3,
+                cache_ms=cache_bytes / PEAK_HBM_BYTES * 1e3,
+                tick_bound_ms=(param_bytes + cache_bytes) / PEAK_HBM_BYTES * 1e3)
+
+
+def serve_requests(tag: str, model, params, requests: int, bounds: dict, smi: str) -> dict:
+    """Phase 17's serving run (``requests`` prompts of LM_PROMPT seeded
+    tokens, drawn as phase 17 draws its own, LM_NEW new each,
+    ServeEngine(LM_SLOTS, LM_MAX_SEQ)) through
+    ``serve_profiled``: every request complete inside the vocabulary, the
+    serve.* counters equal to the run's.  Logs and returns the median tick
+    against ``bounds``, tokens/s, the host's share of a tick and peak
+    memory."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
+               for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, requests)]
+    eng = ServeEngine(model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ, params=params)
+    for r, prompt in enumerate(prompts):
+        eng.submit(Request(rid=r, prompt=prompt, max_new_tokens=LM_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ticks, window, events = serve_profiled(eng, f"{tag} (b)")
+    serve_s = sum(ticks) + sum(window)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    done = sorted(eng.completed, key=lambda r: r.rid)
+    if len(done) != requests or any(
+            len(r.generated) != LM_NEW or not all(0 <= t < vocab for t in r.generated)
+            for r in done):
+        fail(f"{tag} (b): {len(done)} of {requests} requests completed, not all with "
+             f"{LM_NEW} tokens inside the vocabulary")
+    generated = sum(len(r.generated) for r in done)
+    by_kernel = {k: sum(v) for k, v in events.items()}
+    busy_ms = sum(by_kernel.values()) * 1e-3 / LM_PROFILED_TICKS
+    tick_ms = float(np.median(ticks)) * 1e3
+    n_ticks = len(ticks) + len(window)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    sv = dict(
+        requests=requests, ticks=n_ticks, generated=generated,
+        prompt_tokens=sum(map(len, prompts)), serve_s=serve_s, tick_ms_median=tick_ms,
+        tick_ms_p10_p90=[float(np.percentile(ticks, q)) * 1e3 for q in (10, 90)],
+        profiled_tick_ms_median=float(np.median(window)) * 1e3,
+        device_busy_ms_a_tick=busy_ms if busy_ms > 0 else None,
+        host_share=1 - busy_ms / tick_ms if busy_ms > 0 else None,
+        kernels_a_tick=sum(map(len, events.values())) / LM_PROFILED_TICKS,
+        top_kernels_ms_a_tick={k[:70]: v * 1e-3 / LM_PROFILED_TICKS for k, v in top},
+        generated_tokens_per_s=generated / serve_s,
+        all_tokens_per_s=(generated + sum(map(len, prompts))) / serve_s, peak_gib=peak,
+        bounds=bounds, serve_stats=eng.stats())
+    log(f"{tag} (b) serving {model.cfg.compute_dtype} ({model.cfg.param_dtype} storage), "
+        f"{LM_SLOTS} slots x {LM_MAX_SEQ}, text only: {generated} tokens generated "
+        f"({sv['prompt_tokens']} prompt tokens fed by decode) in {n_ticks} ticks, "
+        f"{serve_s:.3f} s; generated tokens/s {sv['generated_tokens_per_s']:.2f}, all tokens/s "
+        f"{sv['all_tokens_per_s']:.2f}")
+    log(f"{tag} (b) decode tick: median {tick_ms:.3f} ms (p10 / p90 "
+        f"{sv['tick_ms_p10_p90'][0]:.3f} / {sv['tick_ms_p10_p90'][1]:.3f}); bound "
+        f"{bounds['tick_bound_ms']:.3f} ms (bytes) = parameters {bounds['params_ms']:.3f} + "
+        f"cache {bounds['cache_ms']:.4f}; peak device memory {peak:.2f} GiB; {smi}")
+    log(f"{tag} (b) device time of a tick (served ticks {LM_PROFILE_AT}-"
+        f"{LM_PROFILE_AT + LM_PROFILED_TICKS - 1}, profiled: median "
+        f"{sv['profiled_tick_ms_median']:.3f} ms a tick): "
+        + ("not measured (the profiler recorded no kernel)" if busy_ms <= 0 else
+           f"{busy_ms:.3f} ms of kernels in {sv['kernels_a_tick']:.1f} launches, host share "
+           f"{sv['host_share']:.3f}; ms a tick by kernel "
+           + json.dumps(sv["top_kernels_ms_a_tick"])))
+    log(f"{tag} (b) serve.* snapshot: " + json.dumps(sv["serve_stats"]))
+    snap = sv["serve_stats"]
+    if (snap["serve.completed"], snap["serve.tokens"], snap["serve.ticks"]) != \
+            (requests, generated, n_ticks):
+        fail(f"{tag} (b): the serve.* counters disagree with the run: {snap}")
+    sv["cache"] = eng.cache
+    return sv
+
+
+def train_apart(tag: str, model, pipe, steps: int, tokens_a_step: int, smi: str) -> dict:
+    """``run_trainer_apart`` for ``steps`` steps: the losses and gradient
+    norms finite, the first loss equal to ``loss_fn`` apart bit for bit,
+    the one checkpoint recorded at the last step.  Logs and returns step
+    ms, tokens/s (``tokens_a_step`` positions a step) and peak memory."""
+    trainer, tparams, opt_state, n, run_s, first, walls, saves, peak = run_trainer_apart(
+        model, pipe, steps, tag)
+    n_params = sum(p.numel() for p in tparams.parameters())
+    losses = [m_["loss_mean"] for m_ in trainer.metrics_log]
+    gnorms = [m_["grad_norm"] for m_ in trainer.metrics_log]
+    step_ms = [1e3 * (b_ - a_) for a_, b_ in zip([0.0] + walls[:-1], walls)]
+    steady = float(np.median(step_ms[1:]))
+    loss0 = float(first["loss"])
+    res = dict(n_layers=model.cfg.n_layers, n_params=n_params, steps=n, init_s=first["init_s"],
+               run_s=run_s, losses=losses, grad_norms=gnorms, step_ms=step_ms,
+               step_ms_median_after_first=steady,
+               tokens_per_s=tokens_a_step / (steady * 1e-3), peak_gib=peak,
+               first_loss_apart=loss0, first_loss_bit_equal=losses[0] == loss0)
+    log(f"{tag} (c) training {model.cfg.name} at full width, {model.cfg.n_layers} layers "
+        f"({n_params} parameters, {model.cfg.param_dtype} storage, {model.cfg.compute_dtype} "
+        f"compute), {tokens_a_step} positions a step: losses {json.dumps(losses)}, grad norms "
+        f"{json.dumps(gnorms)}; ms a step {json.dumps([round(x, 1) for x in step_ms])} (median "
+        f"after the first {steady:.1f}: {res['tokens_per_s']:.1f} positions/s); peak "
+        f"{peak:.2f} GiB; {smi}")
+    log(f"{tag} (c) first loss {losses[0]!r} against loss_fn apart {loss0!r} (bit for bit "
+        f"{res['first_loss_bit_equal']})")
+    if n != steps or len(losses) != steps or not np.all(np.isfinite(losses)) \
+            or not np.all(np.isfinite(gnorms)):
+        fail(f"{tag} (c): {n} steps, losses {losses}, grad norms {gnorms}")
+    if losses[0] != loss0:
+        fail(f"{tag} (c): the first step's loss {losses[0]!r} is not loss_fn's {loss0!r}")
+    if saves != [steps]:
+        fail(f"{tag} (c): checkpoint saves at {saves}")
+    return res
+
+
+def decode_gap(model, params, cache, tokens, want) -> tuple[torch.Tensor, float]:
+    """``model``'s last decode logits over ``tokens`` [B, S] from ``cache``
+    (written in place) and their max |d| from ``want``."""
+    b, s = tokens.shape
+    for t in range(s):
+        logits, cache = model.decode_step(params, cache, tokens[:, t],
+                                          torch.full((b,), t, device=tokens.device))
+    return logits, float((logits - want).abs().max())
+
+
+def check_encoder_attention(gen) -> dict:
+    """Phase 22 (d): whisper's encoder attention at its training shape (B
+    4, 1 500 frames, 6 heads of 64, non-causal, chunk 512: the last chunk
+    holds 476 real keys and 36 padded): chunked_attention's output and
+    its custom backward (dq, dk, dv) against float64 autograd through the
+    plain core, each within AUDIO_ATTN_REL of its scale; the padding
+    counted as real keys (a planted fault) must exceed the limit."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    cfg = get_config(AUDIO_ARCH)
+    f, h, dh = cfg.enc_dec.n_frames, cfg.n_heads, cfg.resolved_head_dim
+    dev = torch.device("cuda")
+    q, k, v, dout = (torch.randn(AUDIO_TRAIN_BATCH, f, h, dh, generator=gen, device=dev)
+                     for _ in range(4))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = layers.chunked_attention(*leaves, causal=False, chunk=cfg.attn_chunk)
+    got = torch.autograd.grad(out, leaves, dout)
+    ref_in = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    ref = attention64(*ref_in, causal=False)
+    want = torch.autograd.grad(ref, ref_in, dout.double())
+    ref = ref.detach()
+    errs = dict(out=float((out.detach().double() - ref).abs().max() / ref.abs().max()),
+                **grad_rel_errs(got, want))
+    padded = [F.pad(t, (0, 0, 0, 0, 0, (-f) % cfg.attn_chunk)) for t in (k, v)]
+    with torch.no_grad():
+        fault = layers.chunked_attention(q, *padded, causal=False, chunk=cfg.attn_chunk)
+    fault_err = float((fault.double() - ref).abs().max() / ref.abs().max())
+    ms = cuda_ms(lambda: torch.autograd.grad(
+        layers.chunked_attention(*leaves, causal=False, chunk=cfg.attn_chunk), leaves, dout),
+        reps=3, inner=1)
+    log(f"audio (d) the encoder's attention at B {AUDIO_TRAIN_BATCH}, {f} frames (chunk "
+        f"{cfg.attn_chunk}, {(-f) % cfg.attn_chunk} padded keys), H {h}, dh {dh}, float32: "
+        f"output and custom backward against float64 autograd, max |d| over max "
+        f"{json.dumps(errs)} (limit {AUDIO_ATTN_REL}); the padding counted as keys "
+        f"{fault_err:.3e} (must exceed it); forward + backward {ms:.3f} ms")
+    if max(errs.values()) > AUDIO_ATTN_REL:
+        fail(f"audio (d): the encoder's attention disagrees with float64 autograd: {errs}")
+    if fault_err <= AUDIO_ATTN_REL:
+        fail(f"audio (d): the limit misses the unmasked padding: {fault_err}")
+    return dict(errs=errs, padding_fault=fault_err, fwd_bwd_ms=ms)
+
+
+def check_reduced_card_vs_cpu(arch: str, gen) -> dict:
+    """Phases 22-23 (d): the reduced ``arch`` in float32, its loss_fn and
+    prefill (with its frontend stub) on the card against the CPU from the
+    same parameters and inputs, within rtol 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_reduced_config(arch), compute_dtype="float32")
+    card, cpu = build_model(cfg), build_model(cfg, device="cpu")
+    params = card.init(torch.Generator("cuda").manual_seed(0))
+    cpu_params = copy.deepcopy(params).cpu()
+    n, key = ((cfg.vlm.n_patches, "patches") if cfg.family == "vlm"
+              else (cfg.enc_dec.n_frames, "frames"))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 17), generator=gen,
+                                     device=gen.device),
+             key: torch.randn(2, n, cfg.d_model, generator=gen, device=gen.device)}
+    host = {k: v.cpu() for k, v in batch.items()}
+    with torch.no_grad():
+        res = dict(loss_card=float(card.loss_fn(params, batch)[0]),
+                   loss_cpu=float(cpu.loss_fn(cpu_params, host)[0]))
+    pre = {k: v[:, :16] if k == "tokens" else v for k, v in batch.items()}
+    got = card.prefill(params, pre).cpu()
+    want = cpu.prefill(cpu_params, {k: v.cpu() for k, v in pre.items()})
+    res["prefill_max_abs_err"] = float((got - want).abs().max())
+    res["prefill_scale"] = float(want.abs().max())
+    log(f"{arch} (d) reduced, float32, card against CPU: loss {res['loss_card']!r} / "
+        f"{res['loss_cpu']!r}, prefill max |d| {res['prefill_max_abs_err']:.3e} (scale "
+        f"{res['prefill_scale']:.3f}; rtol 1e-4)")
+    if abs(res["loss_card"] - res["loss_cpu"]) > 1e-4 * abs(res["loss_cpu"]) \
+            or res["prefill_max_abs_err"] > 1e-4 * res["prefill_scale"]:
+        fail(f"{arch} (d): the card disagrees with the CPU: {res}")
+    return res
+
+
+def phase_audio(smi: str) -> dict:
+    """Phase 22: the audio family, whisper_tiny at full width and depth;
+    see the module docstring."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.data.pipeline import FrontendPipeline
+    from repro_torch.models.model import _cross_kv, _encoder, build_model
+
+    t_phase = time.perf_counter()
+    free_card()
+    dev = torch.device("cuda")
+    full = get_config(AUDIO_ARCH)
+    m32 = build_model(dataclasses.replace(full, compute_dtype="float32"))
+    params, init_s = synced_seconds(lambda: m32.init(torch.Generator(dev).manual_seed(0)))
+    n_params = sum(p.numel() for p in params.parameters())
+    # param_count leaves out the norm scales: 2 an encoder layer, 3 a
+    # decoder layer, the final one (41 157 888 in all, the reference's init)
+    want = param_count(full)[0] + (2 * full.enc_dec.n_encoder_layers + 3 * full.n_layers
+                                   + 1) * full.d_model
+    if n_params != want:
+        fail(f"audio: {n_params} parameters, the reference's init holds {want}")
+    out = dict(arch=AUDIO_ARCH, n_params=n_params, init_s=init_s)
+    log(f"audio (phase 22): {AUDIO_ARCH} at full width and depth ({full.enc_dec.n_encoder_layers}"
+        f" + {full.n_layers} layers, {full.enc_dec.n_frames} frames), {n_params} parameters "
+        f"initialised in {init_s:.2f} s; {smi}")
+    gen = torch.Generator(dev).manual_seed(1)
+
+    # (a) float32 decode against prefill, the cross cache from the encoder
+    b, s = AUDIO_DECODE
+    tokens = torch.randint(0, full.vocab_size, (b, s), generator=gen, device=dev)
+    frames = torch.randn(b, full.enc_dec.n_frames, full.d_model, generator=gen, device=dev)
+    want, prefill_s = synced_seconds(lambda: m32.prefill(params, {"tokens": tokens,
+                                                                  "frames": frames}))
+    cache, zero = m32.init_cache(b, s), m32.init_cache(b, s)
+    with torch.no_grad():
+        p = params.tree()           # float32 storage: the compute dtype's tree
+        cache["cross"], cross_s = synced_seconds(lambda: _cross_kv(
+            m32.cfg, p, _encoder(m32.cfg, p, frames)))
+    t0 = time.perf_counter()
+    logits, err = decode_gap(m32, params, cache, tokens, want)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / s * 1e3
+    _, zero_err = decode_gap(m32, params, zero, tokens, want)
+    same = torch.equal(logits.argmax(-1), want.argmax(-1))
+    out["f32"] = dict(prefill_s=prefill_s, encoder_cross_s=cross_s, decode_ms=decode_ms,
+                      decode_vs_prefill=err, zero_cross_vs_prefill=zero_err,
+                      scale=float(want.abs().max()))
+    log(f"audio (a) float32, {b} x {s} tokens over {full.enc_dec.n_frames} frames: decode's "
+        f"last logits (the cross cache filled by _cross_kv(_encoder(frames)), "
+        f"{cross_s * 1e3:.1f} ms) against prefill's max |d| {err:.3e} (scale "
+        f"{out['f32']['scale']!r}; rtol 1e-3, atol 1e-4), argmax equal {same}; against the zero "
+        f"cross cache (the reference's serving path) {zero_err:.3e}; prefill "
+        f"{prefill_s * 1e3:.1f} ms, {decode_ms:.2f} ms a float32 decode step")
+    if not torch.allclose(logits, want, rtol=1e-3, atol=1e-4) or not same:
+        fail("audio (a): float32 decode does not reproduce prefill's last logits")
+    if zero_err <= 100 * err:
+        fail("audio (a): the zero cross cache gives prefill's logits: the decoder ignores "
+             "the frames")
+    del cache, zero, logits, want, m32, p
+    free_card()
+
+    # (b) serving in bf16 compute (float32 storage): the cast moves 8 B a
+    # parameter; the self cache and the zero cross pair are read
+    m16 = build_model(full)
+    kv = 2 * full.n_layers * LM_SLOTS * full.n_kv_heads * full.resolved_head_dim * 2
+    self_bytes, cross_bytes = kv * LM_MAX_SEQ, kv * full.enc_dec.n_frames
+    sv = serve_requests("audio", m16, params, AUDIO_REQUESTS,
+                        tick_bounds(8 * n_params, self_bytes + cross_bytes), smi)
+    cache = sv.pop("cache")
+    held = sum(t.numel() * t.element_size() for t in (*cache["self"].values(), *cache["cross"]))
+    zero = all(not c.any() for c in cache["cross"])
+    sv.update(self_bytes=self_bytes, cross_bytes=cross_bytes)
+    log(f"audio (b) the cache {held} bytes: self {self_bytes}, cross pair {cross_bytes}; the "
+        f"cross pair zero after the run {zero} (nothing fills it, as in the reference)")
+    if held != self_bytes + cross_bytes or not zero:
+        fail(f"audio (b): the cache holds {held} bytes, its cross pair zero {zero}")
+    out["serve"] = sv
+    del m16, params, cache
+    free_card()
+
+    # (c) training: FrontendPipeline's frames through the encoder
+    model = build_model(full)
+    pipe = FrontendPipeline(full.vocab_size, AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ, seed=0,
+                            frontend_key="frames",
+                            frontend_shape=(full.enc_dec.n_frames, full.d_model))
+    out["train"] = train_apart("audio", model, pipe, AUDIO_TRAIN_STEPS,
+                               AUDIO_TRAIN_BATCH * AUDIO_TRAIN_SEQ, smi)
+    del model
+    free_card()
+
+    # (d) the encoder's attention; the reduced model, card against CPU
+    out["attention"] = check_encoder_attention(gen)
+    out["reduced"] = check_reduced_card_vs_cpu(AUDIO_ARCH, gen)
+    free_card()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("audio (phase 22): " + json.dumps(out))
+    return out
+
+
+def phase_vlm(smi: str) -> dict:
+    """Phase 23: the vlm family, llava_next_34b at full width; see the
+    module docstring."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.data.pipeline import FrontendPipeline
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    free_card()
+    dev = torch.device("cuda")
+    full = get_config(VLM_ARCH)
+    n_patches, d = full.vlm.n_patches, full.d_model
+    gen = torch.Generator(dev).manual_seed(1)
+    out = {"arch": VLM_ARCH}
+
+    # (a) float32 at 8 layers: decode against prefill over the text alone,
+    # the patches' prefill, bf16 against float32
+    cut = dataclasses.replace(full, n_layers=VLM_F32_LAYERS)
+    m32 = build_model(dataclasses.replace(cut, compute_dtype="float32"))
+    m16 = build_model(cut)
+    dense = build_model(dataclasses.replace(cut, family="dense", compute_dtype="float32"))
+    params, init_s = synced_seconds(lambda: m32.init(torch.Generator(dev).manual_seed(0)))
+    n_cut = sum(p.numel() for p in params.parameters())
+    b, s = AUDIO_DECODE
+    text = torch.randint(0, full.vocab_size, (b, s), generator=gen, device=dev)
+    alone = dense.prefill(params, {"tokens": text})
+    logits, err = decode_gap(m32, params, m32.init_cache(b, s), text, alone)
+    same = torch.equal(logits.argmax(-1), alone.argmax(-1))
+    patches = torch.randn(1, n_patches, d, generator=gen, device=dev)
+    batch = {"tokens": text[:1, :VLM_TEXT], "patches": patches}
+    with_patches, f32_s = synced_seconds(lambda: m32.prefill(params, batch))
+    bf16, bf16_s = synced_seconds(lambda: m16.prefill(params, batch))
+    scale = float(with_patches.abs().max())
+    moved = float((with_patches - alone[:1]).abs().max())
+    bf16_err = float((bf16.float() - with_patches).abs().max())
+    out["f32"] = dict(n_layers=VLM_F32_LAYERS, n_params=n_cut, init_s=init_s,
+                      decode_vs_prefill=err, scale=float(alone.abs().max()),
+                      patches_prefill_s=f32_s, bf16_prefill_s=bf16_s, patches_moved=moved,
+                      bf16_vs_f32=bf16_err, patches_scale=scale)
+    log(f"vlm (phase 23): {VLM_ARCH} at full width, {VLM_F32_LAYERS} of {full.n_layers} layers "
+        f"({n_cut} parameters, {n_cut * 4 / 1e9:.2f} GB in float32) initialised in "
+        f"{init_s:.2f} s; {smi}")
+    log(f"vlm (a) float32, {b} x {s} text tokens: decode's last logits against the text-alone "
+        f"prefill's max |d| {err:.3e} (scale {out['f32']['scale']!r}; rtol 1e-3, atol 1e-4), "
+        f"argmax equal {same}; prefill of {n_patches} patches + {VLM_TEXT} tokens "
+        f"{f32_s * 1e3:.1f} ms, its logits {moved:.3e} from the text alone's (scale "
+        f"{scale:.3f}); bf16 prefill ({bf16_s * 1e3:.1f} ms) against float32 {bf16_err:.3e} "
+        f"(limit {LM_BF16_REL} x scale)")
+    if not torch.allclose(logits, alone, rtol=1e-3, atol=1e-4) or not same:
+        fail("vlm (a): float32 decode does not reproduce the text-alone prefill's logits")
+    if not torch.isfinite(with_patches).all() or moved <= 1e-2 * scale:
+        fail("vlm (a): the patches' prefill is not finite or ignores the patches")
+    if bf16_err > LM_BF16_REL * scale:
+        fail(f"vlm (a): bf16 prefill {bf16_err:.3e} from float32 (scale {scale:.3f})")
+    del params, m32, m16, dense, logits, alone
+    free_card()
+
+    # (b) full depth in bf16 storage: the patches' prefill, then serving
+    m = build_model(dataclasses.replace(full, param_dtype="bfloat16"))
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = synced_seconds(lambda: m.init(torch.Generator(dev).manual_seed(0)))
+    n_params = sum(p.numel() for p in params.parameters())
+    want = param_count(full)[0] + (2 * full.n_layers + 1) * d    # 34 388 917 248
+    if n_params != want:
+        fail(f"vlm: {n_params} parameters, the reference's init holds {want}")
+    init_gib = torch.cuda.max_memory_allocated() / 2**30
+    t = n_patches + VLM_TEXT
+    layer_params = n_params - full.vocab_size * d * 2 - d
+    flops = 2 * layer_params * t + 2 * full.n_layers * full.n_heads * \
+        full.resolved_head_dim * t * t + 2 * d * full.vocab_size
+    prefill_ms = cuda_ms(lambda: m.prefill(params, batch), reps=3, inner=1)
+    out["prefill"] = dict(n_params=n_params, init_s=init_s, init_peak_gib=init_gib,
+                          positions=t, ms=prefill_ms, flops=flops,
+                          bound_ms=flops / PEAK_BF16_FLOPS * 1e3,
+                          param_estimate_bound_ms=2 * n_params * t / PEAK_BF16_FLOPS * 1e3,
+                          finite=bool(torch.isfinite(m.prefill(params, batch)).all()))
+    log(f"vlm (b) full depth, {n_params} parameters in bf16 ({2 * n_params / 1e9:.2f} GB) "
+        f"initialised in {init_s:.2f} s (peak {init_gib:.2f} GiB); prefill of {n_patches} "
+        f"patches + {VLM_TEXT} tokens: {prefill_ms:.1f} ms against its bound "
+        f"{out['prefill']['bound_ms']:.1f} ms ({flops / 1e12:.1f} TFLOP at "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s: the layers' products, causal attention, one "
+        f"head row; 2 x parameters x positions gives "
+        f"{out['prefill']['param_estimate_bound_ms']:.1f} ms), finite "
+        f"{out['prefill']['finite']}; {smi}")
+    if not out["prefill"]["finite"]:
+        fail("vlm (b): the full-depth prefill is not finite")
+    cache_bytes = 2 * full.n_layers * LM_SLOTS * LM_MAX_SEQ * full.n_kv_heads * \
+        full.resolved_head_dim * 2
+    sv = serve_requests("vlm", m, params, VLM_REQUESTS, tick_bounds(2 * n_params, cache_bytes),
+                        smi)
+    sv.pop("cache")
+    out["serve"] = sv
+    del m, params
+    free_card()
+
+    # (c) training at 2 layers: FrontendPipeline's patches before the text
+    model = build_model(dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS))
+    pipe = FrontendPipeline(full.vocab_size, VLM_TRAIN_BATCH, VLM_TRAIN_TEXT, seed=0,
+                            frontend_key="patches", frontend_shape=(n_patches, d))
+    out["train"] = train_apart("vlm", model, pipe, VLM_TRAIN_STEPS,
+                               VLM_TRAIN_BATCH * (n_patches + VLM_TRAIN_TEXT), smi)
+    del model
+    free_card()
+
+    # (d) the reduced model, card against CPU
+    out["reduced"] = check_reduced_card_vs_cpu(VLM_ARCH, gen)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("vlm (phase 23): " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-iter", type=int, default=1000,
@@ -4185,6 +4684,9 @@ def main() -> None:
     ap.add_argument("--recurrent-only", action="store_true",
                     help="phases 1, 2, 20 and 21 (the ssm and hybrid families, rwkv6_3b and "
                          "zamba2_2p7b at full width and depth); no kernels line")
+    ap.add_argument("--multimodal-only", action="store_true",
+                    help="phases 1, 2, 22 and 23 (the audio and vlm families, whisper_tiny "
+                         "and llava_next_34b at full width); no kernels line")
     args = ap.parse_args()
 
     t_run = time.perf_counter()
@@ -4193,10 +4695,14 @@ def main() -> None:
     from repro_torch.kernels import ops
     build_logs = phase_build()
 
-    if args.recurrent_only or args.lm_only or args.train_only or args.moe_only:
+    if args.recurrent_only or args.lm_only or args.train_only or args.moe_only \
+            or args.multimodal_only:
         if args.recurrent_only:
             phase_recurrent(smi, SSM_ARCH)
             phase_recurrent(smi, HYBRID_ARCH)
+        elif args.multimodal_only:
+            phase_audio(smi)
+            phase_vlm(smi)
         else:
             (phase_lm if args.lm_only else phase_train if args.train_only else phase_moe)(smi)
         log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s")
@@ -4226,14 +4732,17 @@ def main() -> None:
     # phase 16 first: late in a long run, torch.profiler on the card's
     # machine has recorded no kernel event at all (phase 14's device times)
     contracts = phase_contracts(smi, build_logs)
-    # phases 17-21 next, while the card is empty: their models hold
+    # phases 17-23 next, while the card is empty: their models hold
     # 27.6 GB, 15.3 GB (with its optimizer, gradients and activations
-    # ~55 GiB), 62.8 GB, 12.3 GB and 9.7 GB
+    # ~55 GiB), 62.8 GB, 12.3 GB, 9.7 GB, 0.16 GB and 68.8 GB (llava at
+    # full depth in bf16)
     lm = phase_lm(smi)
     phase_train(smi)
     phase_moe(smi)
     phase_recurrent(smi, SSM_ARCH)
     phase_recurrent(smi, HYBRID_ARCH)
+    phase_audio(smi)
+    phase_vlm(smi)
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
 

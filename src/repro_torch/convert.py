@@ -4,10 +4,11 @@ t-SNE has no weights.  What one package's run hands the other is the
 fitted sparse input-similarity graph, the descent state (whole, or split
 over a device mesh by :func:`shard_state`) and a fitted random-projection
 forest.  The LM substrate does have weights: :func:`lm_params_from_numpy`
-carries a decoder's parameter tree across (dense, MoE, ssm or hybrid; and
-:func:`lm_params_to_numpy` back), :func:`adamw_state_from_numpy` its
-optimizer state and :func:`kv_cache_from_numpy` its stacked KV, latent or
-recurrent cache.
+carries a model's parameter tree across (any family, whisper's encoder
+among the stacks; and :func:`lm_params_to_numpy` back),
+:func:`adamw_state_from_numpy` its optimizer state and
+:func:`kv_cache_from_numpy` its stacked KV, latent, recurrent or
+self-and-cross cache.
 Everything crosses as numpy arrays (never framework objects), so this module needs nothing of
 the JAX package.  The LM functions import the LM package when called: the
 t-SNE half does not load it.
@@ -125,10 +126,11 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, *, device=None) -> DecoderLM:
 
     Weights keep the reference's ``[in, out]`` layout (the port computes
     ``x @ w``, as the reference does), so nothing is transposed.  Each
-    layer stack (``layers``, the MoE family's ``dense_layers``, the hybrid
-    family's ``layers/mamba``) may be the scanned layout (a dict whose
-    leaves are stacked ``[L, ...]``, ``scan_layers=True`` and always for
-    the ssm and hybrid families) or a list of block dicts."""
+    layer stack (``layers``, the MoE family's ``dense_layers``, the audio
+    family's ``encoder``, the hybrid family's ``layers/mamba``) may be the
+    scanned layout (a dict whose leaves are stacked ``[L, ...]``,
+    ``scan_layers=True`` and always for the ssm and hybrid families) or a
+    list of block dicts."""
     from repro_torch.models.model import DecoderLM, layer_stacks, tree_get, tree_put
     dev = resolve_device(device)
     tree = tree_map(lambda a: a, tree)              # the containers copied, not the leaves
@@ -194,8 +196,9 @@ def kv_cache_from_numpy(cache, *, device=None) -> dict:
     Hkv, dh] each), the MoE family's ``{"dense": {ckv, krope} or None,
     "moe": {ckv, krope}}`` of MLA latents ([L, B, S, r] and [L, B, S,
     dr]), the ssm family's ``{state, x_time, x_chan}`` (the state
-    float32), or the hybrid family's ``{"ssm": {state, conv}, "shared":
-    {k, v} or ()}``."""
+    float32), the hybrid family's ``{"ssm": {state, conv}, "shared":
+    {k, v} or ()}``, or the audio family's ``{"self": {k, v}, "cross":
+    (k, v)}`` ([L, B, n_frames, Hkv, dh] each)."""
     dev = resolve_device(device)
 
     def one(c):

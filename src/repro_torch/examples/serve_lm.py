@@ -7,9 +7,10 @@
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu --arch rwkv6_3b
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu --arch zamba2_2p7b
 
-Reduced configs, as the reference's; on ``--device`` (default cuda).  Every
-text family is ported (dense, MoE, ssm and hybrid); the audio and vlm
-archs exit, as the reference's example does.
+Reduced configs, as the reference's; on ``--device`` (default cuda).  The
+text families serve (dense, MoE, ssm and hybrid); the audio and vlm archs
+exit, as the reference's example does (``repro_torch.launch.serve`` serves
+them token-only).
 """
 from __future__ import annotations
 

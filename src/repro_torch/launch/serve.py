@@ -6,9 +6,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch rwkv6_3b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch zamba2_2p7b
 
-Runs on cuda unless ``--device cpu`` is given.  The dense, MoE, ssm and
-hybrid families are ported; the audio and vlm families raise
-``NotImplementedError`` (ROADMAP.md §1).
+Runs on cuda unless ``--device cpu`` is given.  Every family serves; the
+audio and vlm families token-only, as the reference's launcher serves
+them (a ``Request`` carries no frames or patches: whisper's decoder
+attends to a zero cross cache).
 """
 from __future__ import annotations
 

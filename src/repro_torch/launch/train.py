@@ -5,14 +5,16 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch deepseek_v2_lite_16b --reduced
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch rwkv6_3b --reduced
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch zamba2_2p7b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch whisper_tiny --reduced
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch llava_next_34b --reduced
 
-Wires an architecture, its token pipeline and the fault-tolerant Trainer
-together on ``--device`` (default cuda).  ``--data_parallel`` or
+Wires an architecture, its data pipeline and the fault-tolerant Trainer
+together on ``--device`` (default cuda): every family, the vlm and audio
+families through ``FrontendPipeline`` (stubbed patches or frames, as the
+reference's launcher draws them).  ``--data_parallel`` or
 ``--model_parallel`` above 1 raises ``NotImplementedError``: the mesh, the
 sharding rules and the pipeline come with multi-device training
-(ROADMAP.md §1 item 2, slice 2b).  The dense, MoE, ssm and hybrid
-families are ported; the audio and vlm families (and their pipelines)
-raise as ``build_model`` does.
+(ROADMAP.md §1 item 2, slice 2b).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ def main(argv=None) -> list[dict]:
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, get_reduced_config
-    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.pipeline import FrontendPipeline, TokenPipeline
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -47,7 +49,16 @@ def main(argv=None) -> list[dict]:
         raise NotImplementedError(MULTI_DEVICE)
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg, device=args.device)
-    pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq, seed=0)
+    if cfg.family == "vlm":
+        pipe = FrontendPipeline(cfg.vocab_size, args.batch, args.seq, seed=0,
+                                frontend_key="patches",
+                                frontend_shape=(cfg.vlm.n_patches, cfg.d_model))
+    elif cfg.family == "audio":
+        pipe = FrontendPipeline(cfg.vocab_size, args.batch, args.seq, seed=0,
+                                frontend_key="frames",
+                                frontend_shape=(cfg.enc_dec.n_frames, cfg.d_model))
+    else:
+        pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq, seed=0)
     tcfg = TrainerConfig(n_steps=args.steps, ckpt_every=max(args.steps // 2, 5),
                          ckpt_dir=args.ckpt_dir, log_every=5)
     trainer = Trainer(model, pipe, tcfg)

@@ -1,6 +1,5 @@
-"""GQA/MHA attention block with a KV cache: port of
-``repro/models/attention.py`` (self-attention; the enc-dec cross-attention
-comes with the audio family).
+"""GQA/MHA attention block with a KV cache, and the enc-dec
+cross-attention: port of ``repro/models/attention.py``.
 
 The decode path writes the cache **in place** and returns it (the
 reference returns a new cache): a copy of a 30-layer cache every token
@@ -40,31 +39,39 @@ def attention_block(
     positions: torch.Tensor,
     cfg: ArchConfig,
     *,
+    causal: bool = True,
+    use_rope: bool = True,
     cache: dict | None = None,
     cache_pos: torch.Tensor | None = None,
     cross_kv=None,
 ):
     """Returns (out, cache).
 
-    prefill: x [B, S, D], cache None -> causal chunked flash attention.
+    prefill: x [B, S, D], cache None -> chunked flash attention, causal
+    and with RoPE unless told otherwise (whisper's encoder turns both off).
     decode: x [B, 1, D], cache {k, v} of capacity S; slot b writes its row
     at ``min(cache_pos[b], S - 1)`` and attends over the whole capacity
     with the mask ``kpos <= pos`` (a refilled slot's old rows stay, hidden).
+    cross_kv: the encoder's (k, v) [B, F, Hkv, dh]: q from ``x``, the plain
+    non-causal attention over all F frames; neither RoPE nor the cache is
+    touched.
     """
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention (the audio family) is not ported yet: ROADMAP.md "
-            "§1 item 2, slice 3 (the other families)")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = attention(q, k, v, causal=False)
+        return out.reshape(b, s, -1) @ params["wo"], cache
+
     k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+        out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     else:
         k_cache, v_cache = cache["k"], cache["v"]
         cap = k_cache.shape[1]

@@ -1,6 +1,5 @@
 """Top-level model API: ``build_model(cfg)`` -> init / loss / prefill /
-decode: port of ``repro/models/model.py`` for the dense, MoE, ssm and
-hybrid families.
+decode: port of ``repro/models/model.py``, all six families.
 
     model = build_model(get_config("deepseek_7b"))          # on cuda
     params = model.init(torch.Generator("cuda").manual_seed(0))
@@ -24,7 +23,23 @@ The families:
   recurrent state (``models/rwkv.py``);
 * ``hybrid``: Mamba-2 blocks with one shared attention block applied every
   ``shared_stride`` layers (zamba2_2p7b; ``models/ssm.py`` and
-  ``transformer.hybrid_forward``).
+  ``transformer.hybrid_forward``);
+* ``audio``: whisper's encoder-decoder (whisper_tiny).  The conv frontend
+  is a stub: ``batch["frames"]`` [B, n_frames, D] are precomputed frame
+  embeddings.  The encoder (:func:`_encoder`: the frames plus a sinusoid,
+  dense blocks, non-causal, no RoPE) feeds each decoder layer's cross
+  K/V (:func:`_cross_kv`); the decoder blocks (``decoder_cross``) add the
+  sinusoid to the text and keep RoPE.  The decode cache is ``{"self":
+  the KV cache, "cross": the (k, v) pair}``.  As in the reference, nothing
+  here fills the cross pair (``prefill`` returns logits only, and a
+  ``Request`` carries no frames), so the engine decodes against zeros;
+  a caller that wants decode to see the audio writes
+  ``_cross_kv(cfg, p, _encoder(cfg, p, frames))`` into it;
+* ``vlm``: the dense decoder over ``[patches ; text]`` (llava_next_34b).
+  The anyres vision tower is a stub: ``batch["patches"]`` [B, n_patches,
+  D] are pre-projected patch embeddings placed before the text;
+  ``loss_fn`` masks them out of the loss, whose mean is over the text
+  positions.  Decode is the dense family's, text alone from position 0.
 
 ``build_model`` returns the reference's namespace (``cfg``, ``init``,
 ``loss_fn``, ``prefill``, ``decode_step``, ``init_cache``, plus ``device``),
@@ -37,8 +52,7 @@ float parameters to ``compute_dtype`` (as the reference does, those
 float32 leaves too) and embeds from the cast table; ``prefill`` and
 ``decode_step`` run under ``torch.no_grad``, ``loss_fn`` differentiates
 back through the cast to the stored parameters.  ``input_specs`` comes
-with the dry-run launcher; the audio and vlm families raise
-``NotImplementedError`` (ROADMAP.md §1 item 2).
+with the dry-run launcher (ROADMAP.md §1 item 2, slice 3e).
 """
 from __future__ import annotations
 
@@ -61,20 +75,19 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.tree import Stacked, tree_map
 
-NOT_PORTED = {
-    "audio": "ROADMAP.md §1 item 2, slice 3 (the other families: audio cross-attention)",
-    "vlm": "ROADMAP.md §1 item 2, slice 3 (the other families: vlm patches)",
-}
-
 
 def layer_stacks(cfg: ArchConfig) -> dict[tuple[str, ...], int]:
     """The parameter tree's layer stacks, by their path in the tree, and
-    their depths: ``layers`` for the dense and ssm families;
+    their depths: ``layers`` for the dense, vlm and ssm families;
     ``dense_layers`` (when ``first_dense_layers``) and ``layers`` (the MoE
-    blocks) for the MoE family; ``layers/mamba`` for the hybrid family
-    (whose ``layers/shared`` is one block, not a stack)."""
+    blocks) for the MoE family; ``encoder`` and ``layers`` (the
+    ``decoder_cross`` blocks) for the audio family; ``layers/mamba`` for
+    the hybrid family (whose ``layers/shared`` is one block, not a
+    stack)."""
     if cfg.family == "hybrid":
         return {("layers", "mamba"): cfg.n_layers}
+    if cfg.family == "audio":
+        return {("encoder",): cfg.enc_dec.n_encoder_layers, ("layers",): cfg.n_layers}
     if cfg.family != "moe":
         return {("layers",): cfg.n_layers}
     nd = cfg.moe.first_dense_layers
@@ -128,7 +141,8 @@ class _Tree(nn.Module):
 class DecoderLM(nn.Module):
     """A decoder's parameters as a module.  Built from the reference's tree
     (``embed.embedding [V, D]``, ``final_ln [D]``, ``unembed [D, V]``
-    unless tied, each of :func:`layer_stacks`'s stacks a list of block
+    unless tied, each of :func:`layer_stacks`'s stacks (the audio family's
+    ``encoder`` among them) a list of block
     dicts with ``[in, out]`` weights or the scanned layout: one block dict
     whose leaves are ``[L, ...]`` tensors or
     :class:`~repro_torch.tree.Stacked`; the MoE family's ``mtp`` module
@@ -215,23 +229,61 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.sum() / denom
 
 
+def _sinusoid(positions: torch.Tensor, d: int, dtype: torch.dtype) -> torch.Tensor:
+    """[..., S] -> [..., S, d] whisper's sinusoidal embedding: sines of the
+    first d / 2 frequencies, then their cosines.  Computed in float32 as
+    the reference computes it (``log(10000)`` a float32 scalar, the
+    positions cast to float32 before the product), then cast to
+    ``dtype``."""
+    half = d // 2
+    step = torch.log(torch.tensor(10000.0, device=positions.device)) / max(half - 1, 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device) * step)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _encoder(cfg: ArchConfig, p: dict, frames: torch.Tensor) -> torch.Tensor:
+    """The audio family's encoder over the stubbed frontend's frames [B,
+    F, D] (precomputed embeddings): the frames in the compute dtype plus
+    the sinusoid, then the ``encoder`` stack's dense blocks, non-causal
+    and without RoPE.  ``p`` is the parameter tree in the compute dtype
+    (``build_model``'s cast of ``params.tree()``; ``params.tree()`` itself
+    where param_dtype is the compute dtype)."""
+    dtype = cfg.cdtype()
+    f = frames.shape[1]
+    pos = torch.arange(f, device=frames.device)
+    x = frames.to(dtype) + _sinusoid(pos, cfg.d_model, dtype)[None]
+    return stack_forward(p["encoder"], x, pos, cfg, causal=False, use_rope=False)[0]
+
+
+def _cross_kv(cfg: ArchConfig, p: dict, enc_out: torch.Tensor):
+    """Each decoder layer's cross K and V from the encoder's output [B, F,
+    D]: the pair ``([L, B, F, Hkv, dh], [L, B, F, Hkv, dh])``, the layout
+    of the decode cache's ``cross``.  ``p`` as for :func:`_encoder`.  The
+    reference computes it only under ``scan_layers`` (None otherwise, and
+    its blocks then attend to the text with the cross weights); the port
+    in every layout."""
+    b, f, _ = enc_out.shape
+    shape = (b, f, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return tuple(torch.stack([(enc_out @ layer["cross"][w]).reshape(shape)
+                              for layer in p["layers"]]) for w in ("wk", "wv"))
+
+
 def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
-    """The dense, MoE, ssm or hybrid family's training and serving
-    functions on ``device`` (default cuda)."""
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: {NOT_PORTED[cfg.family]}")
+    """The family's training and serving functions on ``device`` (default
+    cuda)."""
     dev = resolve_device(device)
     dtype = cfg.cdtype()
     pdtype = cfg.pdtype()
     fam = cfg.family
     moe = fam == "moe"
+    layer_kind = {"moe": "moe", "audio": "decoder_cross"}.get(fam, "dense")
 
     def init(gen: torch.Generator) -> DecoderLM:
         """Fresh parameters drawn from ``gen``, which must live on the
         model's device: embedding, unembed, then each stack's layers in
-        order (the hybrid's shared block after its Mamba layers), then the
-        MTP module."""
+        order (the audio family's encoder before its decoder, the hybrid's
+        shared block after its Mamba layers), then the MTP module."""
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
         d = cfg.d_model
@@ -247,10 +299,10 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
             tree["layers"] = init_hybrid(gen, cfg, pdtype)
         else:
             for (name,), depth in layer_stacks(cfg).items():
-                dense = name == "dense_layers" or not moe
-                tree[name] = init_stack(gen, cfg, depth, pdtype,
-                                        kind="dense" if dense else "moe",
-                                        d_ff=cfg.moe.dense_d_ff if moe and dense else None)
+                kind = layer_kind if name == "layers" else "dense"
+                tree[name] = init_stack(gen, cfg, depth, pdtype, kind=kind,
+                                        d_ff=cfg.moe.dense_d_ff if name == "dense_layers"
+                                        else None)
         if moe and cfg.mtp:
             tree["mtp"] = {
                 "proj": init_dense(gen, (2 * d, d), pdtype),
@@ -280,8 +332,13 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
     def _tokens(t) -> torch.Tensor:
         return torch.as_tensor(t, device=dev).long()
 
+    def _frontend(a) -> torch.Tensor:
+        """Stubbed frames or patches (host or device arrays) on the device
+        in the compute dtype."""
+        return torch.as_tensor(a, device=dev).to(dtype)
+
     def _backbone(p: dict, x: torch.Tensor, positions: torch.Tensor, *, cache=None,
-                  cache_pos=None):
+                  cache_pos=None, cross_kv=None):
         """(hidden, the MoE blocks' summed aux loss; 0 for the others)."""
         if fam == "ssm":
             remat = cache is None and cfg.remat and torch.is_grad_enabled()
@@ -297,8 +354,8 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
                                   cache_pos=cache_pos)
             return x, torch.zeros((), dtype=torch.float32, device=x.device)
         if not moe:
-            return stack_forward(p["layers"], x, positions, cfg, cache=cache,
-                                 cache_pos=cache_pos)
+            return stack_forward(p["layers"], x, positions, cfg, kind=layer_kind, cache=cache,
+                                 cache_pos=cache_pos, cross_kv=cross_kv)
         if "dense_layers" in p:
             x, _ = stack_forward(p["dense_layers"], x, positions, cfg, kind="dense",
                                  cache=None if cache is None else cache["dense"],
@@ -319,17 +376,40 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
                              kind="moe")
         return _cross_entropy(_head(p, z), tgt)
 
+    def _inputs(p: dict, batch: dict, x: torch.Tensor):
+        """The text's embeddings ``x`` [B, S, D] with the batch's frontend:
+        for the vlm family the patches placed before them, for the audio
+        family the sinusoid added and the encoder's cross K/V.  Returns (x,
+        cross_kv or None)."""
+        if fam == "vlm":
+            return torch.cat([_frontend(batch["patches"]), x], dim=1), None
+        if fam == "audio":
+            cross_kv = _cross_kv(cfg, p, _encoder(cfg, p, _frontend(batch["frames"])))
+            pos = torch.arange(x.shape[1], device=dev)
+            return x + _sinusoid(pos, cfg.d_model, dtype)[None], cross_kv
+        return x, None
+
     def loss_fn(params: DecoderLM, batch: dict):
         """(loss, metrics): the next-token cross-entropy of ``batch["tokens"]``
-        [B, S + 1] over S positions; metrics ``lm_loss`` and ``loss``, and
-        for the MoE family ``aux_loss`` (and ``mtp_loss`` when ``cfg.mtp``)."""
+        [B, S + 1] over S positions (with ``batch["patches"]`` before them
+        for the vlm family, whose P patch positions carry label 0 and mask
+        0, so the mean is over the S text positions; with
+        ``batch["frames"]`` through the encoder for the audio family);
+        metrics ``lm_loss`` and ``loss``, and for the MoE family
+        ``aux_loss`` (and ``mtp_loss`` when ``cfg.mtp``)."""
         p = _cast(params)
         tokens = _tokens(batch["tokens"])
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        x = _embed(p, inputs)
-        positions = torch.arange(inputs.shape[1], device=dev)
-        h, aux = _backbone(p, x, positions)
-        loss = _cross_entropy(_head(p, h), labels)
+        x, cross_kv = _inputs(p, batch, _embed(p, inputs))
+        mask = None
+        if fam == "vlm":
+            n = x.shape[1] - inputs.shape[1]
+            labels = torch.cat([labels.new_zeros((labels.shape[0], n)), labels], dim=1)
+            mask = torch.cat([torch.zeros((labels.shape[0], n), device=dev),
+                              torch.ones(inputs.shape, device=dev)], dim=1)
+        positions = torch.arange(x.shape[1], device=dev)
+        h, aux = _backbone(p, x, positions, cross_kv=cross_kv)
+        loss = _cross_entropy(_head(p, h), labels, mask)
         metrics = {"lm_loss": loss}
         if moe:
             metrics["aux_loss"] = aux
@@ -343,11 +423,12 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
 
     @torch.no_grad()
     def prefill(params: DecoderLM, batch: dict) -> torch.Tensor:
-        """Full-context forward; returns the last position's logits [B, V]."""
+        """Full-context forward; returns the last position's logits [B, V]
+        (vlm: over ``[patches ; tokens]``; audio: the tokens attending to
+        the encoded ``batch["frames"]``)."""
         p = _cast(params)
-        tokens = _tokens(batch["tokens"])
-        x = _embed(p, tokens)
-        h, _ = _backbone(p, x, torch.arange(tokens.shape[1], device=dev))
+        x, cross_kv = _inputs(p, batch, _embed(p, _tokens(batch["tokens"])))
+        h, _ = _backbone(p, x, torch.arange(x.shape[1], device=dev), cross_kv=cross_kv)
         return _head(p, h[:, -1:, :])[:, 0]
 
     @torch.no_grad()
@@ -357,7 +438,12 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
         p = _cast(params)
         token, pos = _tokens(token), _tokens(pos)
         x = _embed(p, token[:, None])
-        h, _ = _backbone(p, x, pos[:, None], cache=cache, cache_pos=pos)
+        if fam == "audio":
+            x = x + _sinusoid(pos[:, None], cfg.d_model, dtype)
+            h, _ = _backbone(p, x, pos[:, None], cache=cache["self"], cache_pos=pos,
+                             cross_kv=cache["cross"])
+        else:
+            h, _ = _backbone(p, x, pos[:, None], cache=cache, cache_pos=pos)
         return _head(p, h)[:, 0], cache
 
     def init_cache(batch: int, seq: int) -> dict:
@@ -365,7 +451,9 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
         cache, ``{k, v}`` ([L, batch, seq, Hkv, dh]) or MLA's latent ``{ckv
         [L, batch, seq, r], krope [L, batch, seq, dr]}`` in the compute
         dtype; for the MoE family ``{"dense": the first dense layers' or
-        None, "moe": the MoE layers'}``; for the ssm family RWKV's
+        None, "moe": the MoE layers'}``; for the audio family ``{"self":
+        {k, v}, "cross": (k, v) [L, batch, n_frames, Hkv, dh]}``, all in the
+        compute dtype; for the ssm family RWKV's
         recurrent ``{state [L, batch, H, P, P] float32, x_time, x_chan [L,
         batch, D]}``; for the hybrid family ``{"ssm": {state [L, batch, H,
         N, P] float32, conv [L, batch, W - 1, d_inner]}, "shared": {k, v}
@@ -377,6 +465,12 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
         else:
             one = init_mla_cache if cfg.attention == "mla" else init_kv_cache
             layer = one(cfg, batch, seq, dtype, device="meta")
+        if fam == "audio":
+            shape = (cfg.n_layers, batch, cfg.enc_dec.n_frames, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            return {"self": stacked_cache(cfg.n_layers, layer, dev),
+                    "cross": tuple(torch.zeros(shape, dtype=dtype, device=dev)
+                                   for _ in range(2))}
         if not moe:
             return stacked_cache(cfg.n_layers, layer, dev)
         stacks = layer_stacks(cfg)

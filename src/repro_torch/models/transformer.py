@@ -1,5 +1,6 @@
-"""Layer stacks: port of ``repro/models/transformer.py`` for the dense,
-MoE and hybrid (zamba2-like) stacks.
+"""Layer stacks: port of ``repro/models/transformer.py``: the dense, MoE
+and enc-dec (``decoder_cross``) block stacks and the hybrid (zamba2-like)
+stack.
 
 The reference scans a stacked ``[L, ...]`` parameter pytree with optional
 remat; the port keeps one parameter dict a layer and loops over them in
@@ -7,8 +8,7 @@ Python.  ``cfg.remat`` wraps each block in
 ``torch.utils.checkpoint.checkpoint`` when gradients are on (the
 reference's ``jax.checkpoint`` of the scan body): the backward keeps each
 block's input and recomputes the rest, the MoE block's aux loss among its
-outputs.  The enc-dec block comes with the audio family (ROADMAP.md §1
-item 2, slice 3).
+outputs.
 """
 from __future__ import annotations
 
@@ -26,14 +26,17 @@ from repro_torch.models.ssm import init_mamba, init_ssm_cache, mamba_block
 def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, *,
                kind: str = "dense", d_ff: int | None = None) -> dict:
     """One block's parameters, the reference's dict: ln1, attn (GQA {wq,
-    wk, wv, wo}, or MLA's when ``cfg.attention == "mla"``), ln2, and mlp:
-    a SwiGLU {w1, w3, w2} of width ``d_ff`` (default ``cfg.d_ff``) for
-    ``kind="dense"``, the MoE's dict for ``kind="moe"``.  The norm scales
-    start at zero."""
+    wk, wv, wo}, or MLA's when ``cfg.attention == "mla"``), for
+    ``kind="decoder_cross"`` ln_cross and cross (a GQA dict), then ln2 and
+    mlp: a SwiGLU {w1, w3, w2} of width ``d_ff`` (default ``cfg.d_ff``),
+    the MoE's dict for ``kind="moe"``.  The norm scales start at zero."""
     d = cfg.d_model
     p = {"ln1": torch.zeros((d,), dtype=dtype, device=gen.device),
-         "attn": (init_mla if cfg.attention == "mla" else init_attention)(gen, cfg, dtype),
-         "ln2": torch.zeros((d,), dtype=dtype, device=gen.device)}
+         "attn": (init_mla if cfg.attention == "mla" else init_attention)(gen, cfg, dtype)}
+    if kind == "decoder_cross":
+        p["ln_cross"] = torch.zeros((d,), dtype=dtype, device=gen.device)
+        p["cross"] = init_attention(gen, cfg, dtype)
+    p["ln2"] = torch.zeros((d,), dtype=dtype, device=gen.device)
     if kind == "moe":
         p["mlp"] = init_moe(gen, cfg, dtype)
     else:
@@ -47,14 +50,27 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, *,
 
 
 def block_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, *,
-                  kind: str = "dense", cache=None, cache_pos=None):
-    """One block: causal self-attention with RoPE (GQA or MLA), then the
-    SwiGLU or the MoE.  Returns (x, aux_loss): the MoE's float32 aux loss,
-    None for a dense block."""
+                  kind: str = "dense", cache=None, cache_pos=None, cross_kv=None,
+                  causal: bool = True, use_rope: bool = True):
+    """One block: self-attention (GQA, causal and with RoPE unless told
+    otherwise, or MLA), for ``kind="decoder_cross"`` the cross-attention
+    over ``cross_kv`` (the encoder's (k, v), required: the reference falls
+    through to self-attention with the cross weights when it is None), then
+    the SwiGLU or the MoE.  Returns (x, aux_loss): the MoE's float32 aux
+    loss, None for the other kinds."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    attend = mla_block if cfg.attention == "mla" else attention_block
-    attn_out, _ = attend(params["attn"], h, positions, cfg, cache=cache, cache_pos=cache_pos)
+    if cfg.attention == "mla":
+        attn_out, _ = mla_block(params["attn"], h, positions, cfg, cache=cache,
+                                cache_pos=cache_pos)
+    else:
+        attn_out, _ = attention_block(params["attn"], h, positions, cfg, causal=causal,
+                                      use_rope=use_rope, cache=cache, cache_pos=cache_pos)
     x = x + attn_out
+    if kind == "decoder_cross":
+        if cross_kv is None:
+            raise ValueError("a decoder_cross block needs the encoder's cross_kv")
+        h = rms_norm(x, params["ln_cross"], cfg.norm_eps)
+        x = x + attention_block(params["cross"], h, positions, cfg, cross_kv=cross_kv)[0]
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     if kind == "moe":
         mlp_out, aux = moe_block(params["mlp"], h, cfg)
@@ -68,23 +84,29 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, n_layers: int, dtype: torc
 
 
 def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, *,
-                  kind: str = "dense", cache=None, cache_pos=None):
+                  kind: str = "dense", cache=None, cache_pos=None, cross_kv=None,
+                  causal: bool = True, use_rope: bool = True):
     """Loop over the block dicts; returns (x, the blocks' summed aux loss,
     a float32 scalar).  ``cache`` is the stacked cache, a dict of
     ``[L, B, S, ...]`` tensors (``{k, v}``, or MLA's ``{ckv, krope}``):
     layer i reads and writes its views ``cache[name][i]`` in place; or
-    None.  Each block is rematerialised in the backward when ``cfg.remat``
-    and gradients are on (serving runs under ``no_grad``, so never there)."""
+    None.  ``cross_kv`` is the per-layer encoder (k, v) of a
+    ``decoder_cross`` stack: a pair whose members layer i indexes
+    (``[L, B, F, Hkv, dh]`` tensors or lists of ``[B, F, Hkv, dh]``).
+    Each block is rematerialised in the backward when ``cfg.remat`` and
+    gradients are on (serving runs under ``no_grad``, so never there)."""
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cache is None and cfg.remat and torch.is_grad_enabled()
     for i, layer in enumerate(params):
+        kw = dict(kind=kind, causal=causal, use_rope=use_rope,
+                  cross_kv=None if cross_kv is None else (cross_kv[0][i], cross_kv[1][i]))
         if remat:
-            x, aux = checkpoint(block_forward, layer, x, positions, cfg, kind=kind,
-                                use_reentrant=False)
+            x, aux = checkpoint(block_forward, layer, x, positions, cfg, use_reentrant=False,
+                                **kw)
         else:
             layer_cache = None if cache is None else {n: c[i] for n, c in cache.items()}
-            x, aux = block_forward(layer, x, positions, cfg, kind=kind, cache=layer_cache,
-                                   cache_pos=cache_pos)
+            x, aux = block_forward(layer, x, positions, cfg, cache=layer_cache,
+                                   cache_pos=cache_pos, **kw)
         if aux is not None:
             aux_sum = aux_sum + aux
     return x, aux_sum

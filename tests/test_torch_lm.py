@@ -30,12 +30,9 @@ from repro_torch.configs.base import param_count  # noqa: E402
 from repro_torch.convert import kv_cache_from_numpy, lm_params_from_numpy  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.models import attention, layers  # noqa: E402
-from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.model import DecoderLM, build_model  # noqa: E402
 
 DENSE = ["deepseek_7b", "phi4_mini_3p8b", "minitron_8b"]
-NOT_PORTED = [a for a in configs.ARCH_IDS
-              if configs.get_config(a).family in model_mod.NOT_PORTED]
 BF16_EPS = 2.0**-7
 B, S = 2, 16
 
@@ -226,13 +223,6 @@ def test_attention_block_decode_writes_the_cache(pos):
     assert new["k"] is cache["k"]                     # written in place
 
 
-def test_cross_attention_raises():
-    cfg = configs.get_reduced_config("deepseek_7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention.attention_block({}, torch.zeros(1, 2, cfg.d_model), torch.arange(2), cfg,
-                                  cross_kv=(torch.zeros(1), torch.zeros(1)))
-
-
 # --------------------------------------------------------------- model -----
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", DENSE)
@@ -268,12 +258,6 @@ def test_decode_matches_prefill(arch):
         logits, cache = model.decode_step(params, cache, tokens[:, t], torch.full((B,), t))
     np.testing.assert_allclose(logits.numpy(), want.numpy(), rtol=1e-3, atol=1e-4)
     assert torch.equal(logits.argmax(-1), want.argmax(-1))
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_other_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(configs.get_reduced_config(arch), device="cpu")
 
 
 def test_build_model_defaults_to_cuda(monkeypatch):

@@ -40,7 +40,7 @@ from repro_torch.examples import serve_lm  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import rwkv  # noqa: E402
-from repro_torch.models.model import NOT_PORTED, DecoderLM, build_model  # noqa: E402
+from repro_torch.models.model import DecoderLM, build_model  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.tree import Stacked, tree_leaves, tree_leaves_with_path  # noqa: E402
 from repro_torch.tree import tree_unflatten_like  # noqa: E402
@@ -150,7 +150,6 @@ def test_init_matches_reference_tree():
     assert param_count(configs.get_config(ARCH))[0] == 3_344_957_440   # the reference's estimate
     shapes = jax.eval_shape(jbuild_model(jconfigs.get_config(ARCH)).init, jax.random.PRNGKey(0))
     assert sum(x.size for x in jax.tree.leaves(shapes)) == 3_075_770_880
-    assert NOT_PORTED.keys() == {"audio", "vlm"}
 
 
 def test_convert_round_trip_keeps_dtypes():

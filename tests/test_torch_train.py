@@ -520,8 +520,11 @@ def test_launch_train_on_cpu(tmp_path, capsys):
     assert (tmp_path / "step_0000000004" / "manifest.json").exists()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         launch_train.main(["--data_parallel", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        launch_train.main(["--arch", "llava_next_34b", "--reduced", "--device", "cpu"])
+    # the vlm family trains through FrontendPipeline's patches
+    log = launch_train.main(["--arch", "llava_next_34b", "--reduced", "--steps", "2",
+                             "--batch", "2", "--seq", "16", "--device", "cpu",
+                             "--ckpt_dir", str(tmp_path / "vlm")])
+    assert [m["step"] for m in log] == [2] and np.isfinite(log[0]["loss_mean"])
 
 
 def test_examples_train_lm_on_cpu(tmp_path, capsys):
