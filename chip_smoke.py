@@ -9,6 +9,7 @@
     python3 chip_smoke.py --moe-only       # phases 1, 2 and 19 (the MoE family only)
     python3 chip_smoke.py --recurrent-only # phases 1, 2, 20 and 21 (the ssm and hybrid families)
     python3 chip_smoke.py --multimodal-only # phases 1, 2, 22 and 23 (the audio and vlm families)
+    python3 chip_smoke.py --dryrun-only    # phases 1, 2, 17, 18 and 24 (the dry-run's bounds)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -417,6 +418,20 @@ result line):
                at 60 is 137.6 GB), (b)'s storage float32 -> bf16 and its
                requests 16 -> 8 (time), (c)'s depth 60 -> 2, batch 2 and
                4 steps.
+
+24. dryrun   -- (right after phase 23) the dry-run tooling against the
+               card: phase 17's bf16 decode tick (deepseek_7b, 8 slots x
+               512) and phase 18's train step (phi4_mini_3p8b, TRAIN_BATCH
+               x TRAIN_SEQ, its options) built as launch.cell cells on a
+               1 x 1 logical mesh and counted by launch.cost on meta
+               tensors: FLOPs, unfused bytes, the bound at 989 TFLOP/s and
+               3.35 TB/s and its dominant term, beside the phase's measured
+               median.  The bound must not exceed the median (a bound above
+               it is an overcounted operation), and the counted per-device
+               argument bytes must equal the nbytes of the tensors the phase
+               held (parameters, cache or optimizer moments, tokens).  Then
+               python -m repro_torch.launch.dryrun --arch deepseek_7b
+               --shape decode_32k as a subprocess: rc 0 and an ok record.
 
 Every kernel must be launched by at least one of the two fits.  Each
 driven path (the two fits, the service, the sharded fit, the mouse
@@ -2953,6 +2968,7 @@ def phase_lm(smi: str) -> dict:
     from repro_torch.models import layers
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.tree import tree_leaves
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3085,6 +3101,11 @@ def phase_lm(smi: str) -> dict:
     if (snap["serve.completed"], snap["serve.tokens"], snap["serve.ticks"]) != \
             (LM_REQUESTS, generated, n_ticks):
         fail(f"lm (c): the serve.* counters disagree with the run: {snap}")
+    # phase 24 holds its counted argument bytes to what the tick's operands hold
+    out["tick_held_bytes"] = (
+        sum(t.nbytes for t in params.parameters())
+        + sum(t.nbytes for t in tree_leaves(eng.cache) if isinstance(t, torch.Tensor))
+        + eng.next_token.nbytes + eng.pos.nbytes)
     del eng, alone, params          # the spies close over their engines: collect the cycles
     gc.collect()
     torch.cuda.empty_cache()
@@ -3333,6 +3354,10 @@ def phase_train(smi: str) -> dict:
     n_params = sum(p.numel() for p in params.parameters())
     if n_params != param_count(cfg)[0] + (2 * cfg.n_layers + 1) * cfg.d_model:
         fail(f"train (b): {n_params} parameters, param_count says {param_count(cfg)[0]} + norms")
+    # phase 24 holds its counted argument bytes to what the step's operands hold
+    held_bytes = (sum(p.nbytes for p in params.parameters())
+                  + sum(t.nbytes for t in tree_leaves((opt_state.m, opt_state.v)))
+                  + pipe.batch(0)["tokens"].nbytes)
     losses = [m["loss_mean"] for m in trainer.metrics_log]
     step_ms = [1e3 * (b - a) for a, b in zip([0.0] + walls[:-1], walls)]
     opt_ms = [a.elapsed_time(b) for a, b in opt_events]
@@ -3346,7 +3371,7 @@ def phase_train(smi: str) -> dict:
         tokens_per_s=tokens_step / (steady * 1e-3), optimizer_ms=opt_ms, peak_gib=peak,
         ckpt_snapshot_s=saves[0][1] - saves[0][0], ckpt_total_s=t_end - saves[0][0],
         ckpt_gb=ckpt_bytes / 1e9, first_loss_apart=loss16, first_loss_f32=loss32,
-        model_tflop_a_step=6 * n_params * tokens_step / 1e12)
+        model_tflop_a_step=6 * n_params * tokens_step / 1e12, step_held_bytes=held_bytes)
     log(f"train (b) {TRAIN_ARCH} at full width ({n_params} parameters, {json.dumps(TRAIN_OPTIONS)}"
         f", batch {TRAIN_BATCH} x {TRAIN_SEQ}): losses {json.dumps(losses)}; ms a step "
         f"{json.dumps([round(x, 1) for x in step_ms])} (median after the first {steady:.1f}: "
@@ -4659,6 +4684,85 @@ def phase_vlm(smi: str) -> dict:
     return out
 
 
+# Phase 24: the dry-run tooling against the card.  The steps phases 17
+# and 18 measured, counted at their exact shapes on a 1 x 1 mesh.
+DRYRUN_SUBPROCESS = ("--arch", "deepseek_7b", "--shape", "decode_32k")
+
+
+def phase_dryrun(smi: str, lm: dict, train: dict) -> dict:
+    """Phase 24: see the module docstring.  ``lm`` and ``train`` are phases
+    17's and 18's summaries: their measured medians and held bytes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.cell import make_cell
+    from repro_torch.launch.cost import cell_report
+    from repro_torch.launch.mesh import LogicalMesh
+
+    t_phase = time.perf_counter()
+    one = LogicalMesh((1, 1), ("data", "model"))
+    phi4 = train["phi4"]
+    cases = {
+        "lm_tick": (get_config(LM_ARCH), ShapeConfig("serve_tick", LM_MAX_SEQ, LM_SLOTS, "decode"),
+                    lm["tick_ms_median"], lm["tick_held_bytes"]),
+        "train_step": (dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_OPTIONS),
+                       ShapeConfig("train_step", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                       phi4["step_ms_median_after_first"], phi4["step_held_bytes"]),
+    }
+    out = {}
+    for name, (cfg, shape, median_ms, held) in cases.items():
+        t0 = time.perf_counter()
+        rep = cell_report(make_cell(cfg, shape, one))
+        count_s = time.perf_counter() - t0
+        roof, mem, glob = rep["roofline"], rep["memory"], rep["cost_global"]
+        bound_ms = roof["bound_time_s"] * 1e3
+        out[name] = dict(
+            arch=cfg.name, batch=shape.global_batch, seq=shape.seq_len, kind=shape.kind,
+            count_s=count_s, flops=glob["flops"], matmul_flops=glob["matmul_flops"],
+            bytes=glob["bytes"], compute_ms=roof["compute_s"] * 1e3,
+            memory_ms=roof["memory_s"] * 1e3, bound_ms=bound_ms, dominant=roof["dominant"],
+            measured_median_ms=median_ms, bound_over_median=bound_ms / median_ms,
+            argument_bytes=mem["argument_size_in_bytes"], held_bytes=held,
+            peak_live_bytes=mem["peak_live_bytes_global"])
+        log(f"dryrun (phase 24) {name}, {cfg.name} {shape.kind} at {shape.global_batch} x "
+            f"{shape.seq_len}, counted in {count_s:.2f} s: {glob['flops']:.6e} FLOPs "
+            f"({glob['matmul_flops']:.6e} in matmuls), {glob['bytes']:.6e} unfused bytes; "
+            f"bound {bound_ms:.3f} ms ({roof['dominant']}; compute "
+            f"{out[name]['compute_ms']:.3f}, memory {out[name]['memory_ms']:.3f}) against the "
+            f"measured median {median_ms:.3f} ms: ratio {bound_ms / median_ms:.4f}; argument "
+            f"bytes {mem['argument_size_in_bytes']} counted, {held} held; {smi}")
+        if bound_ms > median_ms:
+            fail(f"dryrun {name}: the counted bound {bound_ms:.3f} ms exceeds the measured "
+                 f"median {median_ms:.3f} ms: an operation is overcounted")
+        if mem["argument_size_in_bytes"] != held:
+            fail(f"dryrun {name}: counted argument bytes {mem['argument_size_in_bytes']} are "
+                 f"not the {held} bytes the phase holds")
+
+    # the entry point as a user runs it, from a scratch directory
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as cwd:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                               *DRYRUN_SUBPROCESS, "--out", "dry"], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        recs = sorted(Path(cwd, "dry").glob("*.json"))
+        rec = json.loads(recs[0].read_text()) if len(recs) == 1 else {}
+    out["subprocess"] = dict(rc=proc.returncode, seconds=secs, ok=rec.get("ok"),
+                             count_s=rec.get("count_s"),
+                             bound_s=rec.get("roofline", {}).get("bound_time_s"),
+                             dominant=rec.get("roofline", {}).get("dominant"))
+    log(f"dryrun (phase 24) python -m repro_torch.launch.dryrun {' '.join(DRYRUN_SUBPROCESS)}: "
+        f"rc {proc.returncode}, {secs:.1f} s, record " + json.dumps(out["subprocess"])
+        + f"; {smi}")
+    if proc.returncode != 0 or not rec.get("ok") or rec.get("skipped"):
+        fail(f"dryrun: the entry point failed: {proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("dryrun (phase 24): " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-iter", type=int, default=1000,
@@ -4684,6 +4788,9 @@ def main() -> None:
     ap.add_argument("--recurrent-only", action="store_true",
                     help="phases 1, 2, 20 and 21 (the ssm and hybrid families, rwkv6_3b and "
                          "zamba2_2p7b at full width and depth); no kernels line")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="phases 1, 2, 17, 18 and 24 (the dry-run's counted bounds against "
+                         "the LM phases' measured steps); no kernels line")
     ap.add_argument("--multimodal-only", action="store_true",
                     help="phases 1, 2, 22 and 23 (the audio and vlm families, whisper_tiny "
                          "and llava_next_34b at full width); no kernels line")
@@ -4696,8 +4803,10 @@ def main() -> None:
     build_logs = phase_build()
 
     if args.recurrent_only or args.lm_only or args.train_only or args.moe_only \
-            or args.multimodal_only:
-        if args.recurrent_only:
+            or args.multimodal_only or args.dryrun_only:
+        if args.dryrun_only:
+            phase_dryrun(smi, phase_lm(smi), phase_train(smi))
+        elif args.recurrent_only:
             phase_recurrent(smi, SSM_ARCH)
             phase_recurrent(smi, HYBRID_ARCH)
         elif args.multimodal_only:
@@ -4737,12 +4846,13 @@ def main() -> None:
     # ~55 GiB), 62.8 GB, 12.3 GB, 9.7 GB, 0.16 GB and 68.8 GB (llava at
     # full depth in bf16)
     lm = phase_lm(smi)
-    phase_train(smi)
+    train = phase_train(smi)
     phase_moe(smi)
     phase_recurrent(smi, SSM_ARCH)
     phase_recurrent(smi, HYBRID_ARCH)
     phase_audio(smi)
     phase_vlm(smi)
+    phase_dryrun(smi, lm, train)
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
 

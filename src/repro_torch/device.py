@@ -12,11 +12,15 @@ import torch
 MESH_DEVICES_ENV = "REPRO_TORCH_MESH_DEVICES"
 
 
-def resolve_device(device: str | torch.device | None = None) -> torch.device:
+def resolve_device(device: str | torch.device | None = None, *,
+                   abstract: bool = False) -> torch.device:
     """``None`` means ``cuda``.  A CUDA request without a card raises.
 
     There is no silent fall-back to the CPU: a caller who wants the CPU
-    (the tests do) passes ``device="cpu"``.
+    (the tests do) passes ``device="cpu"``.  ``abstract=True`` also admits
+    ``"meta"``, the abstract path of ``build_model`` (tensors with shapes
+    and dtypes and no storage, which the dry-run counts); every other
+    caller refuses it.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -26,7 +30,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "torch.cuda.is_available() is False; pass device='cpu' to "
                 "run the plain PyTorch path on the CPU"
             )
-    elif dev.type != "cpu":
+    elif dev.type != "cpu" and not (abstract and dev.type == "meta"):
         raise ValueError(f"unsupported device {dev!s}: use 'cuda' or 'cpu'")
     return dev
 

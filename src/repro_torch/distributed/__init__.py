@@ -1,3 +1,5 @@
-"""Fault tolerance and gradient compression of the port (port of
-``repro/distributed``'s single-device parts; the sharding rules, the
-pipeline and ``compressed_psum`` come with multi-device training)."""
+"""Fault tolerance, gradient compression and the sharding rule tables of
+the port (port of ``repro/distributed``: the single-device parts, and the
+rule half of ``sharding.py`` that the dry-run reads; the runtime sharding
+layer, the pipeline and ``compressed_psum`` come with multi-device
+training)."""

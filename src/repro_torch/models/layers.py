@@ -13,14 +13,28 @@ import torch
 import torch.nn.functional as F
 
 
+class _NoDraws:
+    """Stands in for the generator on the abstract path: its ``device`` is
+    meta, where :func:`init_dense` draws nothing."""
+
+    device = torch.device("meta")
+
+
+NO_DRAWS = _NoDraws()
+
+
 def init_dense(gen: torch.Generator, shape, dtype: torch.dtype,
                scale: float | None = None) -> torch.Tensor:
     """A standard normal truncated to [-2, 2], times ``scale`` (default
     ``fan_in ** -0.5``), drawn in float32 on ``gen``'s device and cast to
     ``dtype``, as the reference draws it (no correction for the
     truncation).  The draws cannot be the reference's: parity tests carry
-    its parameters across (``convert.lm_params_from_numpy``)."""
+    its parameters across (``convert.lm_params_from_numpy``).  On the
+    abstract path (``gen`` is :data:`NO_DRAWS`) an empty meta tensor of
+    the shape and dtype, nothing drawn."""
     shape = tuple(shape)
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in**-0.5
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)

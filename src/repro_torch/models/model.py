@@ -42,7 +42,8 @@ The families:
   positions.  Decode is the dense family's, text alone from position 0.
 
 ``build_model`` returns the reference's namespace (``cfg``, ``init``,
-``loss_fn``, ``prefill``, ``decode_step``, ``init_cache``, plus ``device``),
+``loss_fn``, ``prefill``, ``decode_step``, ``init_cache``,
+``input_specs``, plus ``device``),
 so ``serve.engine.ServeEngine`` and ``train.trainer.Trainer`` read the same
 in both packages.  ``params`` is a :class:`DecoderLM`: an ``nn.Module``
 holding the reference's parameter tree as ``nn.Parameter`` objects in
@@ -51,8 +52,11 @@ holding the reference's parameter tree as ``nn.Parameter`` objects in
 float parameters to ``compute_dtype`` (as the reference does, those
 float32 leaves too) and embeds from the cast table; ``prefill`` and
 ``decode_step`` run under ``torch.no_grad``, ``loss_fn`` differentiates
-back through the cast to the stored parameters.  ``input_specs`` comes
-with the dry-run launcher (ROADMAP.md §1 item 2, slice 3e).
+back through the cast to the stored parameters.  ``input_specs(shape)``
+gives a shape cell's abstract inputs (meta tensors) and
+``build_model(cfg, device="meta")`` the abstract path, the counterpart of
+the reference's ``jax.eval_shape``: ``launch.cell`` builds the dry-run's
+cells from them and ``launch.cost`` counts their steps.
 """
 from __future__ import annotations
 
@@ -63,10 +67,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import init_kv_cache
-from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.models.layers import NO_DRAWS, init_dense, rms_norm
 from repro_torch.models.mla import init_mla_cache
 from repro_torch.models.rwkv import init_rwkv, init_rwkv_cache, rwkv_block
 from repro_torch.models.transformer import (
@@ -74,6 +78,9 @@ from repro_torch.models.transformer import (
     stack_forward, stacked_cache,
 )
 from repro_torch.tree import Stacked, tree_map
+
+# the abstract path's device: shapes and dtypes, no storage
+META = torch.device("meta")
 
 
 def layer_stacks(cfg: ArchConfig) -> dict[tuple[str, ...], int]:
@@ -263,27 +270,45 @@ def _cross_kv(cfg: ArchConfig, p: dict, enc_out: torch.Tensor):
     reference computes it only under ``scan_layers`` (None otherwise, and
     its blocks then attend to the text with the cross weights); the port
     in every layout."""
+    return tuple(torch.stack(kv) for kv in _cross_kv_layers(cfg, p, enc_out))
+
+
+def _cross_kv_layers(cfg: ArchConfig, p: dict, enc_out: torch.Tensor):
+    """:func:`_cross_kv` as two lists of a ``[B, F, Hkv, dh]`` tensor a
+    layer, what the forward reads: a layer's select of the stacked pair
+    would make the backward write a whole ``[L, ...]`` stack of zeros a
+    layer (bytes quadratic in the depth)."""
     b, f, _ = enc_out.shape
     shape = (b, f, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return tuple(torch.stack([(enc_out @ layer["cross"][w]).reshape(shape)
-                              for layer in p["layers"]]) for w in ("wk", "wv"))
+    return tuple([(enc_out @ layer["cross"][w]).reshape(shape) for layer in p["layers"]]
+                 for w in ("wk", "wv"))
 
 
 def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
     """The family's training and serving functions on ``device`` (default
-    cuda)."""
-    dev = resolve_device(device)
+    cuda).  ``device="meta"`` is the abstract path, the counterpart of the
+    reference's ``jax.eval_shape``: ``init()`` makes every parameter with
+    the reference's shape and dtype and draws nothing, ``init_cache`` and
+    ``input_specs`` give meta tensors, and the functions run on them
+    without storage (``launch.cost`` counts their operations)."""
+    dev = resolve_device(device, abstract=True)
     dtype = cfg.cdtype()
     pdtype = cfg.pdtype()
     fam = cfg.family
     moe = fam == "moe"
     layer_kind = {"moe": "moe", "audio": "decoder_cross"}.get(fam, "dense")
 
-    def init(gen: torch.Generator) -> DecoderLM:
+    def init(gen: torch.Generator | None = None) -> DecoderLM:
         """Fresh parameters drawn from ``gen``, which must live on the
         model's device: embedding, unembed, then each stack's layers in
         order (the audio family's encoder before its decoder, the hybrid's
-        shared block after its Mamba layers), then the MTP module."""
+        shared block after its Mamba layers), then the MTP module.  On the
+        abstract path ``gen`` is None (no generator lives on meta) and the
+        parameters are empty meta tensors."""
+        if dev.type == "meta" and gen is None:
+            gen = NO_DRAWS
+        elif gen is None:
+            raise ValueError(f"init needs a generator on {dev}")
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
         d = cfg.d_model
@@ -384,7 +409,7 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
         if fam == "vlm":
             return torch.cat([_frontend(batch["patches"]), x], dim=1), None
         if fam == "audio":
-            cross_kv = _cross_kv(cfg, p, _encoder(cfg, p, _frontend(batch["frames"])))
+            cross_kv = _cross_kv_layers(cfg, p, _encoder(cfg, p, _frontend(batch["frames"])))
             pos = torch.arange(x.shape[1], device=dev)
             return x + _sinusoid(pos, cfg.d_model, dtype)[None], cross_kv
         return x, None
@@ -447,6 +472,10 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
         return _head(p, h)[:, 0], cache
 
     def init_cache(batch: int, seq: int) -> dict:
+        """Zeros on the model's device: see :func:`_init_cache`."""
+        return _init_cache(batch, seq, dev)
+
+    def _init_cache(batch: int, seq: int, device: torch.device) -> dict:
         """Zeros, each leaf in its reference dtype: the stacked per-layer
         cache, ``{k, v}`` ([L, batch, seq, Hkv, dh]) or MLA's latent ``{ckv
         [L, batch, seq, r], krope [L, batch, seq, dr]}`` in the compute
@@ -459,7 +488,7 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
         N, P] float32, conv [L, batch, W - 1, d_inner]}, "shared": {k, v}
         [apps, batch, seq, Hkv, dh] or ()}``."""
         if fam == "hybrid":
-            return init_hybrid_cache(cfg, batch, seq, dtype, device=dev)
+            return init_hybrid_cache(cfg, batch, seq, dtype, device=device)
         if fam == "ssm":
             layer = init_rwkv_cache(cfg, batch, dtype, device="meta")
         else:
@@ -468,15 +497,47 @@ def build_model(cfg: ArchConfig, device=None) -> SimpleNamespace:
         if fam == "audio":
             shape = (cfg.n_layers, batch, cfg.enc_dec.n_frames, cfg.n_kv_heads,
                      cfg.resolved_head_dim)
-            return {"self": stacked_cache(cfg.n_layers, layer, dev),
-                    "cross": tuple(torch.zeros(shape, dtype=dtype, device=dev)
+            return {"self": stacked_cache(cfg.n_layers, layer, device),
+                    "cross": tuple(torch.zeros(shape, dtype=dtype, device=device)
                                    for _ in range(2))}
         if not moe:
-            return stacked_cache(cfg.n_layers, layer, dev)
+            return stacked_cache(cfg.n_layers, layer, device)
         stacks = layer_stacks(cfg)
-        return {"dense": stacked_cache(stacks[("dense_layers",)], layer, dev)
+        return {"dense": stacked_cache(stacks[("dense_layers",)], layer, device)
                 if ("dense_layers",) in stacks else None,
-                "moe": stacked_cache(stacks[("layers",)], layer, dev)}
+                "moe": stacked_cache(stacks[("layers",)], layer, device)}
+
+    def input_specs(shape: ShapeConfig) -> dict:
+        """The step's abstract inputs for a shape cell, meta tensors of the
+        reference's shapes and dtypes whatever the model's device: for
+        train ``tokens`` [B, text + 1] int32, for prefill [B, text] (text =
+        :func:`_text_len`), each with the frontend's stub (vlm ``patches``,
+        audio ``frames``); for decode the cache of capacity S
+        (``init_cache(B, S)`` on the abstract path) and ``token``, ``pos``
+        [B] int32."""
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"cache": _init_cache(b, s, META),
+                    "token": torch.empty((b,), dtype=torch.int32, device=META),
+                    "pos": torch.empty((b,), dtype=torch.int32, device=META)}
+        n = _text_len(s) + (1 if shape.kind == "train" else 0)
+        return {"tokens": torch.empty((b, n), dtype=torch.int32, device=META),
+                **_frontend_specs(b)}
+
+    def _text_len(s: int) -> int:
+        """The text's share of a sequence of S positions: S less the vlm
+        family's patches, S for the others."""
+        return s - cfg.vlm.n_patches if fam == "vlm" else s
+
+    def _frontend_specs(b: int) -> dict:
+        if fam == "vlm":
+            return {"patches": torch.empty((b, cfg.vlm.n_patches, cfg.d_model), dtype=dtype,
+                                           device=META)}
+        if fam == "audio":
+            return {"frames": torch.empty((b, cfg.enc_dec.n_frames, cfg.d_model), dtype=dtype,
+                                          device=META)}
+        return {}
 
     return SimpleNamespace(cfg=cfg, device=dev, init=init, loss_fn=loss_fn, prefill=prefill,
-                           decode_step=decode_step, init_cache=init_cache)
+                           decode_step=decode_step, init_cache=init_cache,
+                           input_specs=input_specs)

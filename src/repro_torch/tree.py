@@ -77,10 +77,11 @@ def tree_leaves(tree, is_leaf: Callable[[Any], bool] | None = None) -> list:
     return [leaf for _, leaf in tree_leaves_with_path(tree, is_leaf)]
 
 
-def tree_unflatten_like(tree, leaves: list):
-    """``tree``'s structure with its leaves replaced, in order, by ``leaves``."""
+def tree_unflatten_like(tree, leaves: list, is_leaf: Callable[[Any], bool] | None = None):
+    """``tree``'s structure with its leaves replaced, in order, by ``leaves``
+    (a node for which ``is_leaf`` is true is a leaf)."""
     it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
+    return tree_map(lambda _: next(it), tree, is_leaf=is_leaf)
 
 
 def treedef_str(tree) -> str:
