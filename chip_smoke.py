@@ -10,6 +10,7 @@
     python3 chip_smoke.py --recurrent-only # phases 1, 2, 20 and 21 (the ssm and hybrid families)
     python3 chip_smoke.py --multimodal-only # phases 1, 2, 22 and 23 (the audio and vlm families)
     python3 chip_smoke.py --dryrun-only    # phases 1, 2, 17, 18 and 24 (the dry-run's bounds)
+    python3 chip_smoke.py --multidevice-only # phases 1, 2 and 25 (multi-device training)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -131,15 +132,15 @@ result line):
 12. service  -- EmbeddingService(slots=64, max_k=96) on the card, caching
                10's two fits as "mnist_forest" (its forest index) and
                "mnist_exact" (the exact-graph fit, whose ExactIndex runs
-               pairwise tiles), traced; 2 048 held-out rows submitted to
+               pairwise tiles), traced; 1 024 held-out rows submitted to
                each, alternating, and drained with run(): every request
-               done and finite; completed 4 096, slot occupancy up to 64,
+               done and finite; completed 2 048, slot occupancy up to 64,
                queue depth >= 1, both gauges 0 at the end; the
                transform_step probe grown by exactly 1 (the [64, 96]
                step); bsp_search launched once an admission, pairwise 8
                tiles an exact admission and none for a forest one.  Each
                model's results against its TSNE.transform of the same rows,
-               and 256 requests on a CPU service against the card's
+               and 128 requests on a CPU service against the card's
                (median |dy| <= 1e-5 x span, >= 98% of rows within 1e-3 x
                span).  Prints requests/s, latency p50/p95/p99, steps, ticks
                and the service.admit / service.tick span totals; then runs
@@ -266,10 +267,10 @@ result line):
                3.84 B parameters in float32), random weights from seed 0,
                with the reference's own options bf16 moments, a factored
                second moment and 4 microbatches; TokenPipeline(vocab, 4,
-               4 096, seed 0) through Trainer.run for 6 steps with one
-               checkpoint (at step 6, into a temporary directory removed
+               4 096, seed 0) through Trainer.run for 4 steps with one
+               checkpoint (at step 4, into a temporary directory removed
                afterwards).  Cuts: train_4k's global batch 256 -> 4 and
-               6 steps; widths, depth and sequence not cut.  Prints each
+               4 steps; widths, depth and sequence not cut.  Prints each
                step's loss and ms, tokens/s, each optimizer update's ms
                (CUDA events around adamw_update), peak GiB, the
                checkpoint's GB and seconds; the losses must be finite, the
@@ -284,7 +285,7 @@ result line):
                parameters and optimizer state equal an uninterrupted run's
                bit for bit.  (d) python -m repro_torch.launch.train --arch
                phi4_mini_3p8b --reduced --steps 4 and python -m
-               repro_torch.examples.train_lm --steps 20 on the card, from a
+               repro_torch.examples.train_lm --steps 10 on the card, from a
                scratch directory: exit 0 and a finite last loss.
 19. moe      -- (right after phase 18, its model freed) the MoE family:
                deepseek_v2_lite_16b at full width and depth (27 layers,
@@ -432,6 +433,36 @@ result line):
                held (parameters, cache or optimizer moments, tokens).  Then
                python -m repro_torch.launch.dryrun --arch deepseek_7b
                --shape decode_32k as a subprocess: rc 0 and an ok record.
+25. multidevice -- (right after phase 24) multi-device training on the
+               single-controller mesh, four (or eight) shards of cuda:0
+               (REPRO_TORCH_MESH_DEVICES).  (a) compressed_psum over 8
+               shards of 1 M float32: every rank's bits equal, equal to the
+               CPU's, within 8 x scale of the exact sum; pipelined over 4
+               stages (8 microbatches of 256 x 1 024, tanh(x w + b))
+               against the sequential apply of the same microbatches at
+               rtol 1e-5, atol 1e-6.
+               (b) deepseek_v2_lite_16b's MoE block at full width (64
+               experts, top-6, d_model 2 048, expert_d_ff 1 408) on a 2
+               data x 4 model mesh, x [4, 512, 2 048] and the router on
+               grids where every logit is exact: at capacity factor 64 EP
+               against the local branch (rtol 2e-4, atol 2e-5, the
+               reference's), its aux_loss and expert_load data shard 0's;
+               at the published 1.25 EP on the card against EP on the CPU.
+               (c) phi4_mini_3p8b at full width, 2 layers (bf16 factored
+               moments, 2 microbatches, batch 8 x 1 024) through
+               launch.train's path on a 2 x 2 mesh (make_local_mesh, the
+               Trainer under use_mesh_rules) for 4 steps against the
+               single-device Trainer on the same batches: each step's loss
+               and grad norm within 1e-4 of the single-device run's
+               (relative), the final parameters and optimizer moments
+               within MD_STATE_REL of each leaf's scale, and every data
+               replica's parameters and optimizer state equal to replica
+               0's bit for bit, with one replica a distinct card; both
+               runs' step ms, tokens/s, peak memory and the bytes the
+               collectives move between shards a step.  With four or more
+               cards, (c) also on a mesh of four real cards (remat on, as
+               the configuration has it).  Cuts: (c)'s depth 32 -> 2 and
+               4 steps.
 
 Every kernel must be launched by at least one of the two fits.  Each
 driven path (the two fits, the service, the sharded fit, the mouse
@@ -453,6 +484,7 @@ import contextlib
 import copy
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -1819,8 +1851,8 @@ def phase_transform(est, x_np: np.ndarray, labels: np.ndarray) -> dict:
 # The embedding service
 # ---------------------------------------------------------------------------
 
-SERVICE_ROWS = 2048         # held-out rows submitted to each of the two models
-SERVICE_CPU_ROWS = 256      # requests replayed on a CPU service
+SERVICE_ROWS = 1024         # held-out rows submitted to each of the two models (cut from 2 048)
+SERVICE_CPU_ROWS = 128      # requests replayed on a CPU service (cut from 256)
 
 
 def service_bars(what: str, y: np.ndarray, y_ref: np.ndarray, span: float) -> dict:
@@ -3156,10 +3188,11 @@ def phase_lm(smi: str) -> dict:
 # vocab 200 064, tied embeddings: 3 835 822 080 parameters in float32, with
 # the reference's own memory options (bf16 moments, the factored second
 # moment, 4 microbatches).  Cuts: train_4k's global batch 256 -> 4 and
-# 6 steps; widths, depth and the 4 096-token sequence are not cut.
+# 4 steps (cut from 6 for the script's time); widths, depth and the
+# 4 096-token sequence are not cut.
 TRAIN_ARCH = "phi4_mini_3p8b"
 TRAIN_OPTIONS = dict(optimizer_dtype="bfloat16", optimizer_factored=True, grad_accum=4)
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 4
 # (a) one layer's attention at the training shape
 TRAIN_ATTN = dict(b=1, s=4096, h=24, hkv=8, dh=128, chunk=512)
 # Each gradient of the custom backward against float64 autograd through
@@ -3463,8 +3496,8 @@ def phase_train(smi: str) -> dict:
     for name, argv, last in (
             ("launch.train", ["-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
                               "--reduced", "--steps", "4"], "step 4 loss"),
-            ("examples.train_lm", ["-m", "repro_torch.examples.train_lm", "--steps", "20"],
-             "step    20  loss")):
+            ("examples.train_lm", ["-m", "repro_torch.examples.train_lm", "--steps", "10"],
+             "step    10  loss")):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as cwd:
             env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
             t0 = time.perf_counter()
@@ -4762,6 +4795,380 @@ def phase_dryrun(smi: str, lm: dict, train: dict) -> dict:
     log("dryrun (phase 24): " + json.dumps(out))
     return out
 
+# phase 25: multi-device training on the single-controller mesh
+MD_CPSUM_SHAPE = (8, 1 << 20)     # (a) 8 shards of 1 M float32 each
+MD_PIPE = dict(stages=4, n_micro=8, rows=256, width=1024)
+MD_MOE_X = (4, 512)               # (b) [B, S] rows of deepseek_v2_lite_16b's d_model
+MD_MOE_MESH = (2, 4)              # (b) data x model
+MD_MOE_REL = dict(rtol=2e-4, atol=2e-5)   # the reference's EP-against-local tolerance
+MD_TRAIN_LAYERS = 2               # (c) phi4_mini_3p8b's depth 32 -> 2
+MD_TRAIN_OPTIONS = dict(optimizer_dtype="bfloat16", optimizer_factored=True, grad_accum=2)
+MD_TRAIN_BATCH, MD_TRAIN_SEQ, MD_TRAIN_STEPS = 8, 1024, 4
+MD_TRAIN_MESH = (2, 2)
+# (c) limits against the single-device run, relative: the sharded step
+# sums in another order (measured on the H100: losses 9e-6 apart, grad
+# norms 3e-5), and half a batch's gradient left out moves either by more
+MD_LOSS_REL = 1e-4
+MD_GNORM_REL = 1e-4
+# the final state, leaf by leaf, |mesh - one device| / max|one device|:
+# of the parameters' updates and of the moments.  The moments are bf16:
+# two ulps of a leaf's largest element reach 2^-6 of its scale; half a
+# batch's gradient left out moves each by about 1 (measured on the CPU at
+# the reduced width)
+MD_STATE_REL = {"params": 2.0**-5, "m": 2.0**-5, "v": 2.0**-5}
+
+
+@contextlib.contextmanager
+def forced_mesh_devices(n: int):
+    """``REPRO_TORCH_MESH_DEVICES=n`` for the block: a mesh sees n shards of
+    the visible cards, repeated."""
+    from repro_torch.device import MESH_DEVICES_ENV
+    prev = os.environ.get(MESH_DEVICES_ENV)
+    os.environ[MESH_DEVICES_ENV] = str(n)
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(MESH_DEVICES_ENV, None)
+        else:
+            os.environ[MESH_DEVICES_ENV] = prev
+
+
+def check_md_blocks(dev: torch.device) -> dict:
+    """Phase 25 (a): compressed_psum on 8 shards of the card against the
+    CPU bit for bit and the exact sum within 8 x scale; pipelined over 4
+    stages on the card against the sequential apply."""
+    from repro_torch.distributed.collectives import Mesh, make_mesh
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.distributed.pipeline import pipelined
+    from repro_torch.launch.mesh import DeviceMesh
+
+    rng = np.random.default_rng(25)
+    x = rng.normal(size=MD_CPSUM_SHAPE).astype(np.float32)
+    with forced_mesh_devices(MD_CPSUM_SHAPE[0]):
+        mesh = make_mesh(MD_CPSUM_SHAPE[0], dev)
+    shards = [torch.as_tensor(r, device=d_) for r, d_ in zip(x, mesh.devices)]
+    got = compressed_psum(mesh, shards)
+    want = compressed_psum(Mesh((torch.device("cpu"),) * len(x)), [torch.as_tensor(r) for r in x])
+    ranks_equal = all(torch.equal(g.cpu(), got[0].cpu()) for g in got)
+    bits_equal = torch.equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32))
+    where = sorted({str(d_) for d_ in mesh.devices})
+    err = float(np.abs(got[0].cpu().numpy() - x.sum(0, dtype=np.float64)).max())
+    scale = float(np.abs(x).max()) / 127.0
+    cpsum_ms = cuda_ms(lambda: compressed_psum(mesh, shards))
+    out = dict(cpsum=dict(shards=len(x), n=x.shape[1], ranks_equal=ranks_equal,
+                          bits_equal_cpu=bits_equal, max_abs_err=err, limit=8 * scale,
+                          ms=cpsum_ms))
+    log(f"multidevice (a) compressed_psum over {mesh.size} shards of {where} x {x.shape[1]} "
+        f"float32: ranks equal {ranks_equal}, bits equal the CPU's {bits_equal}, max |sum - "
+        f"exact| {err:.4e} (limit 8 x scale {8 * scale:.4e}); {cpsum_ms:.3f} ms a call")
+    if not (ranks_equal and bits_equal) or err > 8 * scale:
+        fail("multidevice (a): compressed_psum")
+
+    p = MD_PIPE
+    gen = torch.Generator(dev).manual_seed(25)
+    params = {"w": torch.randn(p["stages"], p["width"], p["width"], generator=gen, device=dev)
+              * p["width"] ** -0.5,
+              "b": torch.randn(p["stages"], p["width"], generator=gen, device=dev)}
+    xb = torch.randn(p["n_micro"] * p["rows"], p["width"], generator=gen, device=dev)
+
+    def stage(sp, v):
+        return torch.tanh(v @ sp["w"] + sp["b"])
+
+    with forced_mesh_devices(p["stages"]):
+        pmesh = DeviceMesh((p["stages"],), ("pipe",), make_mesh(p["stages"], dev).devices)
+    apply = pipelined(stage, pmesh, n_micro=p["n_micro"])
+
+    def sequential(rows: int) -> torch.Tensor:
+        """Every stage in turn, on blocks of ``rows`` rows."""
+        outs = []
+        for blk in xb.split(rows):
+            for s in range(p["stages"]):
+                blk = stage({"w": params["w"][s], "b": params["b"][s]}, blk)
+            outs.append(blk)
+        return torch.cat(outs)
+
+    y = apply(params, xb)
+    # the sequential apply a microbatch at a time (the pipeline's matmul
+    # shapes: cuBLAS sums a 2 048-row product in another order)
+    ref, whole = sequential(p["rows"]), sequential(len(xb))
+    err = float((y - ref).abs().max())
+    close = bool(torch.allclose(y, ref, rtol=1e-5, atol=1e-6))
+    whole_err = float((y - whole).abs().max())
+    pipe_ms = cuda_ms(lambda: apply(params, xb))
+    seq_ms = cuda_ms(lambda: sequential(p["rows"]))
+    out["pipeline"] = dict(**p, max_abs_err=err, close=close, whole_batch_max_abs_err=whole_err,
+                           ms=pipe_ms, sequential_ms=seq_ms)
+    log(f"multidevice (a) pipelined {p['stages']} stages x {p['n_micro']} microbatches of "
+        f"{p['rows']} x {p['width']} on {sorted({str(d_) for d_ in pmesh.devices})}: max |d| {err:.3e} against the sequential apply "
+        f"a microbatch at a time (rtol 1e-5, atol 1e-6: {close}; against the whole batch at "
+        f"once {whole_err:.3e}); {pipe_ms:.3f} ms, sequential {seq_ms:.3f} ms")
+    if not close:
+        fail("multidevice (a): pipelined disagrees with the sequential apply")
+    return out
+
+
+def check_md_moe(dev: torch.device) -> dict:
+    """Phase 25 (b): deepseek_v2_lite_16b's MoE block at full width on a
+    2 x 4 mesh of the card: EP against the local branch at capacity factor
+    64 (no token dropped), and at the published 1.25 against the same EP
+    code on the CPU.  The router weight and the rows lie on grids (1/64,
+    1/4) where every logit is exact in float32 in any summation order, so
+    card and CPU route alike."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import use_mesh_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.moe import init_moe, moe_block
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(MOE_ARCH)
+    d, (b, s) = cfg.d_model, MD_MOE_X
+    gen = torch.Generator(dev).manual_seed(26)
+    params = init_moe(gen, cfg, torch.float32)
+    params["router"]["w"] = torch.round(params["router"]["w"] * 64) / 64
+    x = torch.round(torch.randn(b, s, d, generator=gen, device=dev) * 4) / 4
+    with forced_mesh_devices(math.prod(MD_MOE_MESH)):
+        mesh = make_local_mesh(*MD_MOE_MESH, device=dev)
+    cpu_mesh = make_local_mesh(*MD_MOE_MESH, device="cpu")
+    out = {}
+    with torch.no_grad():
+        c64 = moe_config(cfg, capacity_factor=64.0)
+        y_local, aux_local = moe_block(params, x, c64)
+        with use_mesh_rules(mesh):
+            y_ep, aux_ep = moe_block(params, x, c64)
+        _, aux_first = moe_block(params, x[:b // MD_MOE_MESH[0]], c64)
+        err = float((y_ep - y_local).abs().max())
+        close = bool(torch.allclose(y_ep, y_local, **MD_MOE_REL))
+        load_first = torch.equal(aux_ep["expert_load"], aux_first["expert_load"])
+        aux_rel = abs(float(aux_ep["aux_loss"]) / float(aux_first["aux_loss"]) - 1)
+        out["cf64"] = dict(max_abs_err=err, scale=float(y_local.abs().max()), close=close,
+                           aux_ep=float(aux_ep["aux_loss"]), aux_local=float(aux_local["aux_loss"]),
+                           aux_data_shard0=float(aux_first["aux_loss"]),
+                           load_is_data_shard0=load_first)
+        log(f"multidevice (b) {MOE_ARCH} MoE block at full width ({cfg.moe.n_experts} experts, "
+            f"top-{cfg.moe.top_k}, d_model {d}, expert_d_ff {cfg.moe.expert_d_ff}), x [{b}, {s}, "
+            f"{d}], mesh {MD_MOE_MESH[0]} data x {MD_MOE_MESH[1]} model on "
+            f"{sorted({str(d_) for d_ in mesh.devices})}, capacity "
+            f"factor 64: EP against the local branch max |d| {err:.3e} (scale "
+            f"{out['cf64']['scale']:.4f}, rtol 2e-4 atol 2e-5: {close}); aux_loss EP "
+            f"{out['cf64']['aux_ep']!r}, local {out['cf64']['aux_local']!r}, data shard 0's rows "
+            f"alone {out['cf64']['aux_data_shard0']!r}; expert_load data shard 0's {load_first}")
+        if not close or not load_first or aux_rel > 1e-5:
+            fail("multidevice (b): EP at capacity factor 64 against the local branch")
+        del y_local, y_ep
+
+        c125 = cfg                          # the published capacity factor
+        with use_mesh_rules(mesh):
+            y_card, aux_card = moe_block(params, x, c125)
+            ep_ms = cuda_ms(lambda: moe_block(params, x, c125), reps=3, inner=2)
+        local_ms = cuda_ms(lambda: moe_block(params, x, c125), reps=3, inner=2)
+        y_drop, _ = moe_block(params, x, c125)
+        p_cpu, x_cpu = tree_map(lambda t: t.cpu(), params), x.cpu()
+        with use_mesh_rules(cpu_mesh):
+            y_cpu, aux_cpu = moe_block(p_cpu, x_cpu, c125)
+        err = float((y_card.cpu() - y_cpu).abs().max())
+        close = bool(torch.allclose(y_card.cpu(), y_cpu, **MD_MOE_REL))
+        load_equal = torch.equal(aux_card["expert_load"].cpu(), aux_cpu["expert_load"])
+        aux_rel = abs(float(aux_card["aux_loss"]) / float(aux_cpu["aux_loss"]) - 1)
+        gap = float((y_card - y_drop).abs().max())
+        out["cf125"] = dict(capacity_factor=cfg.moe.capacity_factor, max_abs_err_cpu=err,
+                            scale=float(y_cpu.abs().max()), close=close, load_equal=load_equal,
+                            aux_rel_err=aux_rel, ep_vs_local_gap=gap, ep_ms=ep_ms,
+                            local_ms=local_ms)
+        log(f"multidevice (b) capacity factor {cfg.moe.capacity_factor}: EP on {dev} against EP "
+            f"on the CPU max |d| {err:.3e} (scale {out['cf125']['scale']:.4f}, rtol 2e-4 atol "
+            f"2e-5: {close}), expert_load equal {load_equal}, aux_loss rel {aux_rel:.2e}; EP "
+            f"against the local branch max |d| {gap:.4f} (capacity per data shard drops other "
+            f"tokens); EP block {ep_ms:.3f} ms, local block {local_ms:.3f} ms")
+        if not close or not load_equal or aux_rel > 1e-5:
+            fail("multidevice (b): EP at the published capacity factor, card against CPU")
+    return out
+
+
+def run_md_trainer(model, pipe, label: str):
+    """``Trainer.run`` for MD_TRAIN_STEPS steps from seed 0 under whatever
+    mesh rules are active, its one checkpoint recorded, not written.
+    Returns (losses, grad norms, ms a step, peak GiB, the step's replicas
+    [(params, opt_state)] a distinct device, the first the run's state)."""
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    trainer = Trainer(model, pipe, TrainerConfig(
+        n_steps=MD_TRAIN_STEPS, ckpt_every=MD_TRAIN_STEPS, log_every=1,
+        ckpt_dir=tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")))
+    saves = []
+    trainer.ckpt.save = lambda step, tree, blocking=False: saves.append(step)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    try:
+        params, opt_state, _ = trainer.run(
+            seed=0, callback=lambda s_, m_: walls.append(m_["wall_s"]))
+    finally:
+        shutil.rmtree(trainer.tcfg.ckpt_dir, ignore_errors=True)
+    sync_all()
+    if saves != [MD_TRAIN_STEPS]:
+        fail(f"multidevice (c) {label}: checkpoint saves at {saves}")
+    replicas = trainer.train_step.replicas()
+    if replicas[0][0] is not params or replicas[0][1] is not opt_state:
+        fail(f"multidevice (c) {label}: the step's replica 0 is not the run's state")
+    step_ms = [1e3 * (b_ - a_) for a_, b_ in zip([0.0] + walls[:-1], walls)]
+    return ([m_["loss_mean"] for m_ in trainer.metrics_log],
+            [m_["grad_norm"] for m_ in trainer.metrics_log], step_ms,
+            torch.cuda.max_memory_allocated() / 2**30, replicas)
+
+
+def md_state_leaves(params, opt_state) -> dict:
+    """{"params", "m", "v"}: the state's tensors in the reference's leaf
+    order (a factored second moment's row and column means among v's)."""
+    from repro_torch.tree import tree_leaves
+    return {"params": tree_leaves(params.reference_tree()), "m": tree_leaves(opt_state.m),
+            "v": tree_leaves(opt_state.v)}
+
+
+def md_check_replicas(label: str, mesh, replicas) -> int:
+    """Every data replica's parameters and optimizer state against replica
+    0's, bit for bit, with one replica a distinct card among the data
+    shards' first devices.  Returns the number of replicas."""
+    from repro_torch.distributed.collectives import same_device
+    homes = []
+    for d_ in range(mesh.shape["data"]):
+        h = mesh.device(data=d_, model=0)
+        if not any(same_device(h, e) for e in homes):
+            homes.append(h)
+    if len(replicas) != len(homes) or not all(
+            same_device(r[0].embedding.device, h) for r, h in zip(replicas, homes)):
+        fail(f"multidevice (c) {label}: {len(replicas)} replicas for the data shards' "
+             f"devices {[str(h) for h in homes]}")
+    want = md_state_leaves(*replicas[0])
+    for r, (p, st) in enumerate(replicas[1:], start=1):
+        if st.step != replicas[0][1].step:
+            fail(f"multidevice (c) {label}: replica {r} at step {st.step}")
+        for kind, leaves in md_state_leaves(p, st).items():
+            for i, (a, b) in enumerate(zip(leaves, want[kind], strict=True)):
+                if not torch.equal(a.to(b.device), b):
+                    fail(f"multidevice (c) {label}: replica {r}'s {kind} leaf {i} differs "
+                         f"from replica 0's")
+    return len(replicas)
+
+
+def md_state_gaps(got: dict, want: dict, init: list) -> dict:
+    """Per kind, the largest |got - want| / max|want| over its leaves, of
+    the parameters' updates (from ``init``) and of the moments (which
+    start at 0); ``want``'s and ``init``'s leaves on the host, compared
+    on ``got``'s device."""
+    out = {}
+    for kind, leaves in want.items():
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(got[kind], leaves, strict=True)):
+            a, b = a.detach().float(), b.to(a.device, non_blocking=True).float()
+            if kind == "params":
+                p0 = init[i].to(a.device, non_blocking=True).float()
+                a, b = a - p0, b - p0
+            scale = max(float(b.abs().max()), 1e-30)
+            worst = max(worst, float((a - b).abs().max()) / scale)
+        out[kind] = worst
+    return out
+
+
+def check_md_train(dev: torch.device, smi: str) -> dict:
+    """Phase 25 (c): phi4_mini_3p8b at full width and 2 layers through
+    launch.train's path on a 2 x 2 mesh of the card (make_local_mesh under
+    REPRO_TORCH_MESH_DEVICES=4, the Trainer under use_mesh_rules) against
+    the single-device Trainer on the same batches; with four or more cards
+    also on a mesh of four real cards."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import DEFAULT_RULES, use_mesh_rules
+    from repro_torch.launch.mesh import DeviceMesh, make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MD_TRAIN_LAYERS,
+                              **MD_TRAIN_OPTIONS)
+    model = build_model(cfg, device=dev)
+    pipe = TokenPipeline(cfg.vocab_size, MD_TRAIN_BATCH, MD_TRAIN_SEQ, seed=0)
+    tokens = MD_TRAIN_BATCH * MD_TRAIN_SEQ
+    out = {}
+    n = math.prod(MD_TRAIN_MESH)
+    if torch.cuda.device_count() == 1:      # launch.train's mesh on a one-card machine
+        with forced_mesh_devices(n):
+            one_card = make_local_mesh(*MD_TRAIN_MESH, device=dev)
+    else:                                   # there the variable would name every card
+        one_card = DeviceMesh(MD_TRAIN_MESH, ("data", "model"), (dev,) * n)
+    runs = [("one_device", None), ("mesh_one_card", one_card)]
+    if torch.cuda.device_count() >= n:
+        runs.append(("mesh_cards", make_local_mesh(*MD_TRAIN_MESH, device=dev)))
+    # the Trainer's initial parameters (seed 0), kept on the host
+    init = [t.to("cpu") for t in
+            tree_leaves(model.init(torch.Generator(dev).manual_seed(0)).reference_tree())]
+    for label, mesh in runs:
+        free_card()
+        collectives.COPIED_BYTES["bytes"] = 0
+        with use_mesh_rules(mesh, DEFAULT_RULES):      # None: no rules
+            losses, gnorms, step_ms, peak, replicas = run_md_trainer(model, pipe, label)
+        state = md_state_leaves(*replicas[0])
+        if mesh is None:                               # the reference, kept on the host
+            want_state = {k: [t.detach().to("cpu") for t in v] for k, v in state.items()}
+            gaps, n_replicas = None, 1
+        else:
+            n_replicas = md_check_replicas(label, mesh, replicas)
+            gaps = md_state_gaps(state, want_state, init)
+        del replicas, state
+        steady = float(np.median(step_ms[1:]))
+        out[label] = dict(mesh=None if mesh is None else dict(mesh.shape),
+                          devices=None if mesh is None else [str(d_) for d_ in mesh.devices],
+                          losses=losses, grad_norms=gnorms, step_ms=step_ms,
+                          step_ms_median_after_first=steady,
+                          tokens_per_s=tokens / (steady * 1e-3), peak_gib=peak,
+                          collective_bytes_per_step=collectives.COPIED_BYTES["bytes"]
+                          / MD_TRAIN_STEPS, replicas=n_replicas,
+                          state_rel_to_one_device=gaps)
+        log(f"multidevice (c) {TRAIN_ARCH} at full width, {MD_TRAIN_LAYERS} layers, "
+            f"{json.dumps(MD_TRAIN_OPTIONS)}, batch {MD_TRAIN_BATCH} x {MD_TRAIN_SEQ}, {label}"
+            + ("" if mesh is None else f" (mesh {dict(mesh.shape)} on "
+               f"{sorted({str(d_) for d_ in mesh.devices})})")
+            + f": losses {json.dumps(losses)}, grad norms {json.dumps(gnorms)}; ms a step "
+            f"{json.dumps([round(v, 1) for v in step_ms])} (median after the first "
+            f"{steady:.1f}: {out[label]['tokens_per_s']:.1f} tokens/s); peak {peak:.2f} GiB; "
+            f"collectives {out[label]['collective_bytes_per_step']:.6e} bytes a step between "
+            f"shards; {smi}")
+        if len(losses) != MD_TRAIN_STEPS or not np.all(np.isfinite(losses)) \
+                or not np.all(np.isfinite(gnorms)):
+            fail(f"multidevice (c) {label}: losses {losses}, grad norms {gnorms}")
+    want = out["one_device"]
+    for label, _ in runs[1:]:
+        got = out[label]
+        rel = {k: [abs(a / b - 1) for a, b in zip(got[k], want[k], strict=True)]
+               for k in ("losses", "grad_norms")}
+        got["loss_rel_to_one_device"] = rel["losses"]
+        got["grad_norm_rel_to_one_device"] = rel["grad_norms"]
+        log(f"multidevice (c) {label} against the single-device Trainer: relative gaps of "
+            f"the losses {json.dumps(rel['losses'])} (limit {MD_LOSS_REL}), of the grad norms "
+            f"{json.dumps(rel['grad_norms'])} (limit {MD_GNORM_REL}); the final state's gaps "
+            f"by leaf scale {json.dumps(got['state_rel_to_one_device'])} (limits "
+            f"{json.dumps(MD_STATE_REL)}); {got['replicas']} replicas equal bit for bit")
+        if max(rel["losses"]) > MD_LOSS_REL or max(rel["grad_norms"]) > MD_GNORM_REL \
+                or any(got["state_rel_to_one_device"][k] > v for k, v in MD_STATE_REL.items()):
+            fail(f"multidevice (c): {label} parts from the single-device run")
+    return out
+
+
+def phase_multidevice(smi: str) -> dict:
+    """Phase 25: see the module docstring."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    free_card()
+    out = {"blocks": check_md_blocks(dev)}
+    free_card()
+    out["moe"] = check_md_moe(dev)
+    free_card()
+    out["train"] = check_md_train(dev, smi)
+    free_card()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multidevice (phase 25) {out['phase_s']:.1f} s: " + json.dumps(out) + f"; {smi}")
+    return out
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4794,6 +5201,10 @@ def main() -> None:
     ap.add_argument("--multimodal-only", action="store_true",
                     help="phases 1, 2, 22 and 23 (the audio and vlm families, whisper_tiny "
                          "and llava_next_34b at full width); no kernels line")
+    ap.add_argument("--multidevice-only", action="store_true",
+                    help="phases 1, 2 and 25 (multi-device training on four shards of the "
+                         "card: compressed_psum, the pipeline, the MoE EP block, phi4_mini_3p8b "
+                         "on a 2 x 2 mesh); no kernels line")
     args = ap.parse_args()
 
     t_run = time.perf_counter()
@@ -4803,8 +5214,10 @@ def main() -> None:
     build_logs = phase_build()
 
     if args.recurrent_only or args.lm_only or args.train_only or args.moe_only \
-            or args.multimodal_only or args.dryrun_only:
-        if args.dryrun_only:
+            or args.multimodal_only or args.dryrun_only or args.multidevice_only:
+        if args.multidevice_only:
+            phase_multidevice(smi)
+        elif args.dryrun_only:
             phase_dryrun(smi, phase_lm(smi), phase_train(smi))
         elif args.recurrent_only:
             phase_recurrent(smi, SSM_ARCH)
@@ -4853,6 +5266,7 @@ def main() -> None:
     phase_audio(smi)
     phase_vlm(smi)
     phase_dryrun(smi, lm, train)
+    phase_multidevice(smi)
     rows = phase_kernels(x, int(3 * perplexity), perplexity)
     phase_gradient(x)
 

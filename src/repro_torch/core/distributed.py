@@ -6,7 +6,9 @@ one CPU.  The port does the same without ``torch.distributed``: a
 :class:`Mesh` is a tuple of ``torch.device``s driven from one process,
 and a device may appear more than once.  A sharded array is a list of
 per-shard tensors, row block r on ``mesh.devices[r]``
-(:func:`shard_rows`, :func:`gather_rows`).  The three collectives the
+(:func:`shard_rows`, :func:`gather_rows`).  The mesh and its collectives
+live in :mod:`repro_torch.distributed.collectives` (multi-device training
+shares them) and are re-exported here.  The three collectives the
 reference uses are copies between the shards' devices: :func:`all_gather`,
 :func:`psum` and the ring :func:`ring_permute` (rank r receives from
 r - 1).  Every copy is ``non_blocking`` and nothing here reads a value
@@ -38,7 +40,6 @@ copy is issued after the hop's compute.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import NamedTuple, Sequence
 
@@ -48,8 +49,8 @@ from repro_torch.core import morton, quadtree
 from repro_torch.core.knn import key_low_words, write_keys
 from repro_torch.core.summarize import summarize
 from repro_torch.core.tsne import GradResult, TsneState, combine_forces, gd_move
-from repro_torch.device import (
-    MESH_DEVICES_ENV, forced_mesh_size, mesh_devices, resolve_device,
+from repro_torch.distributed.collectives import (  # noqa: F401  (re-exported)
+    Mesh, all_gather, gather_rows, make_mesh, pmax, ppermute, psum, ring_permute, shard_rows,
 )
 from repro_torch.kernels import ops
 from repro_torch.neighbors._candidates import candidate_sq_dists, merge_topk
@@ -63,87 +64,6 @@ RING_BLOCK_ROWS = 4096
 # ring_knn_approx: rank r draws its hyperplanes from seed + r * this prime,
 # so shard 1's seed never collides with shard 0's tree-index folds
 RANK_SEED_STRIDE = 7919
-
-
-# ---------------------------------------------------------------------------
-# mesh and collectives
-# ---------------------------------------------------------------------------
-
-@dataclasses.dataclass(frozen=True)
-class Mesh:
-    """A 1-D device mesh driven from one process; rank r is ``devices[r]``."""
-
-    devices: tuple[torch.device, ...]
-
-    def __post_init__(self):
-        devices = tuple(torch.device(d) for d in self.devices)
-        if not devices:
-            raise ValueError("a mesh needs at least one device")
-        object.__setattr__(self, "devices", devices)
-
-    @property
-    def size(self) -> int:
-        return len(self.devices)
-
-
-def make_mesh(n: int, device: str | torch.device = "cuda") -> Mesh:
-    """A mesh of the first ``n`` cards (raises if fewer are visible, as
-    ``jax.make_mesh`` does), or of ``n`` CPU shards for ``device="cpu"``
-    (the counterpart of forced host devices).  With
-    ``REPRO_TORCH_MESH_DEVICES=S`` set, the first ``n`` of the S devices
-    that :func:`repro_torch.device.mesh_devices` repeats, on either device
-    type: ``make_mesh(4)`` is ``Mesh((cuda:0,) * 4)`` on one card."""
-    dev = resolve_device(device)
-    if n < 1:
-        raise ValueError(f"a mesh needs n >= 1 devices, got {n}")
-    if dev.type == "cpu" and forced_mesh_size() is None:
-        return Mesh((dev,) * n)
-    visible = mesh_devices(dev)
-    if n > len(visible):
-        unit = "cards" if dev.type == "cuda" else "CPU devices"
-        raise ValueError(f"a mesh of {n} devices needs {n} {unit}, but {len(visible)} "
-                         f"are visible (set {MESH_DEVICES_ENV}={n} to repeat them)")
-    return Mesh(visible[:n])
-
-
-def shard_rows(mesh: Mesh, x: torch.Tensor) -> list[torch.Tensor]:
-    """Split x [N, ...] into ``mesh.size`` equal row blocks, block r on rank r."""
-    n = x.shape[0]
-    if n % mesh.size:
-        raise ValueError(f"N={n} not divisible by {mesh.size} shards")
-    n_loc = n // mesh.size
-    return [x[r * n_loc:(r + 1) * n_loc].to(dev, non_blocking=True).contiguous()
-            for r, dev in enumerate(mesh.devices)]
-
-
-def gather_rows(parts: Sequence[torch.Tensor], device=None) -> torch.Tensor:
-    """The rows of every shard in rank order on one device (default: rank 0's)."""
-    dev = parts[0].device if device is None else torch.device(device)
-    return torch.cat([p.to(dev, non_blocking=True) for p in parts])
-
-
-def all_gather(mesh: Mesh, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """Every rank gets all shards' rows in rank order (``all_gather(tiled=True)``)."""
-    return [gather_rows(parts, dev) for dev in mesh.devices]
-
-
-def psum(mesh: Mesh, values: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """Every rank gets the sum of all ranks' values, added in rank order, so
-    each rank holds the same bits."""
-    out = []
-    for dev in mesh.devices:
-        total = values[0].to(dev, non_blocking=True)
-        for v in values[1:]:
-            total = total + v.to(dev, non_blocking=True)
-        out.append(total)
-    return out
-
-
-def ring_permute(mesh: Mesh, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """One ring hop (``ppermute`` with pairs (i, i + 1)): rank r receives
-    rank r - 1's tensor."""
-    s = mesh.size
-    return [parts[(r - 1) % s].to(dev, non_blocking=True) for r, dev in enumerate(mesh.devices)]
 
 
 # ---------------------------------------------------------------------------

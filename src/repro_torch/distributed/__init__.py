@@ -1,5 +1,5 @@
-"""Fault tolerance, gradient compression and the sharding rule tables of
-the port (port of ``repro/distributed``: the single-device parts, and the
-rule half of ``sharding.py`` that the dry-run reads; the runtime sharding
-layer, the pipeline and ``compressed_psum`` come with multi-device
-training)."""
+"""Multi-device training and its parts (port of ``repro/distributed``):
+the single-controller mesh's collectives (``collectives``), the sharding
+rules and their runtime layer (``sharding``), gradient compression and
+``compressed_psum`` (``compression``), the GPipe pipeline (``pipeline``)
+and fault tolerance (``fault``)."""

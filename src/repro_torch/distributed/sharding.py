@@ -1,22 +1,37 @@
-"""Logical-axis sharding rules (MaxText-style) and the parameter specs
-derived from them: port of the rule half of ``repro/distributed/sharding.py``.
+"""Logical-axis sharding rules (MaxText-style), the parameter specs
+derived from them, and the runtime layer that model code reads: port of
+``repro/distributed/sharding.py``.
 
 Model code names axes *logically* ("batch", "heads", "fsdp"); a rule table
 maps each logical name onto physical mesh axes.  Here a spec is a tuple
 with one entry a dimension, each ``None`` (replicated), a mesh axis name,
 or a tuple of names: the counterpart of JAX's ``PartitionSpec``.  The
 dry-run (``launch.cell``, ``launch.cost``) reads these specs to size each
-device's shard and the parameter traffic.  The runtime half (``logical``,
-``use_mesh_rules``, ``active_rules``, ``batch_axes``, ``replicated``)
-comes with multi-device training (ROADMAP.md, slice 2b).
+device's shard and the parameter traffic.
+
+At run time :func:`use_mesh_rules` makes a mesh and its rules active and
+:func:`active_rules` reads them; with no active mesh every function here
+is a no-op, as in the reference.  The port has no GSPMD, so it has no
+``logical`` (the reference's activation constraint) nor ``replicated``
+(its ``P()`` sharding): the split is explicit where the reference's
+shardings split work.  The train step (``train.step``) runs one data shard
+at a time under :func:`use_shard`; inside it :func:`shard_group` gives the
+tensor-parallel (``heads``, ``ffn``) and expert-parallel (``experts``)
+blocks the devices of that data shard's model axis.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import types
 from typing import Any
 
 from repro_torch.tree import Stacked, tree_leaves_with_path, tree_unflatten_like
 
+# The active rules and data shard, process-wide.  The reference keeps them
+# thread-local; here autograd runs a CUDA backward on a thread of its own,
+# and a remat recompute there must see the rules its forward saw.
+_STATE = types.SimpleNamespace(rules=None, scope=None)
 
 
 class Spec(tuple):
@@ -66,6 +81,97 @@ class MeshRules:
 
     def spec(self, *logical: str | None) -> Spec:
         return make_spec(self.axis(a) for a in logical)
+
+    def size(self, logical: str | None) -> int:
+        """The number of shards of a logical axis on this mesh."""
+        return _axis_size(self.mesh, self.axis(logical))
+
+
+def active_rules() -> MeshRules | None:
+    return _STATE.rules
+
+
+@contextlib.contextmanager
+def use_mesh_rules(mesh, rules: dict[str, Any] | None = None):
+    prev = _STATE.rules
+    _STATE.rules = MeshRules(mesh, dict(rules or DEFAULT_RULES)) if mesh is not None else None
+    try:
+        yield _STATE.rules
+    finally:
+        _STATE.rules = prev
+
+
+def _names(ax) -> tuple[str, ...]:
+    """A resolved axis (None, a name or a tuple of names) as a tuple."""
+    return () if ax is None else (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def batch_axes() -> tuple[str, ...]:
+    """The mesh axes that the active rules split the batch over."""
+    r = active_rules()
+    return () if r is None else _names(r.axis("batch"))
+
+
+# ---------------------------------------------------------------------------
+# the data shard being run, and its model axis
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardScope:
+    """The data shard that the code below runs: its index ``data`` over
+    the batch axes (row-major, as the reference lays the batch out), and
+    what the expert-parallel MoE block shares across the data shards of
+    one microbatch: ``shard0``, data shard 0's ``(aux_loss,
+    expert_load)`` a MoE call in call order, which every data shard
+    returns as the reference's ``shard_map`` does (``out_specs=P()``);
+    ``forward`` is False while autograd recomputes (remat) in the
+    backward, where the values are not read."""
+
+    data: int = 0
+    shard0: list = dataclasses.field(default_factory=list)
+    forward: bool = True
+    cursor: int = 0
+
+
+def current_shard() -> ShardScope | None:
+    return _STATE.scope
+
+
+@contextlib.contextmanager
+def use_shard(scope: ShardScope):
+    prev = _STATE.scope
+    _STATE.scope = scope
+    try:
+        yield scope
+    finally:
+        _STATE.scope = prev
+
+
+def batch_coords(data: int) -> dict[str, int]:
+    """Data shard ``data``'s coordinates on the active mesh's batch axes
+    (row-major)."""
+    coords = {}
+    for ax in reversed(batch_axes()):
+        size = active_rules().mesh.shape[ax]
+        coords[ax] = data % size
+        data //= size
+    return coords
+
+
+def shard_group(logical_axis: str, dim: int):
+    """The 1-D mesh of ``logical_axis``'s devices for the current data shard
+    (shard 0 outside :func:`use_shard`), when the active mesh splits that
+    axis over more than one device and its size divides ``dim``; else
+    None: the dimension stays whole, as an axis that does not divide its
+    dimension is dropped from a parameter's spec."""
+    r = active_rules()
+    if r is None or not hasattr(r.mesh, "group"):
+        return None
+    ax = r.axis(logical_axis)
+    if not isinstance(ax, str) or r.mesh.shape[ax] == 1 or dim % r.mesh.shape[ax]:
+        return None
+    scope = current_shard()
+    return r.mesh.group(ax, **batch_coords(scope.data if scope else 0))
 
 
 def make_spec(entries) -> Spec:

@@ -1,4 +1,4 @@
-"""Training launcher: port of ``repro/launch/train.py`` on one device.
+"""Training launcher: port of ``repro/launch/train.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_7b --steps 20 --reduced
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch phi4_mini_3p8b --reduced
@@ -8,21 +8,22 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch whisper_tiny --reduced
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch llava_next_34b --reduced
 
+    REPRO_TORCH_MESH_DEVICES=4 PYTHONPATH=src python -m repro_torch.launch.train \
+        --device cpu --arch deepseek_7b --reduced --data_parallel 2 --model_parallel 2
+
 Wires an architecture, its data pipeline and the fault-tolerant Trainer
 together on ``--device`` (default cuda): every family, the vlm and audio
 families through ``FrontendPipeline`` (stubbed patches or frames, as the
-reference's launcher draws them).  ``--data_parallel`` or
-``--model_parallel`` above 1 raises ``NotImplementedError``: the mesh, the
-sharding rules and the pipeline come with multi-device training
-(ROADMAP.md §1 item 2, slice 2b).
+reference's launcher draws them).  With ``--data_parallel D`` times
+``--model_parallel M`` above 1 it builds a ``(data, model)`` mesh of D x M
+devices (``launch.mesh.make_local_mesh``: every card, or one card's or the
+CPU's shards repeated under ``REPRO_TORCH_MESH_DEVICES``) and runs the
+Trainer under ``use_mesh_rules(mesh, DEFAULT_RULES)``, as the reference's
+launcher does.  ``--compress_grads`` is parsed and unused, as there.
 """
 from __future__ import annotations
 
 import argparse
-
-MULTI_DEVICE = ("multi-device training (the mesh, the sharding rules, the GPipe pipeline "
-                "and compressed_psum) is not ported yet: ROADMAP.md §1 item 2, slice 2b "
-                "(multi-device training)")
 
 
 def main(argv=None) -> list[dict]:
@@ -42,11 +43,11 @@ def main(argv=None) -> list[dict]:
 
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.data.pipeline import FrontendPipeline, TokenPipeline
+    from repro_torch.distributed.sharding import DEFAULT_RULES, use_mesh_rules
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.model import build_model
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    if args.data_parallel * args.model_parallel > 1:
-        raise NotImplementedError(MULTI_DEVICE)
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg, device=args.device)
     if cfg.family == "vlm":
@@ -61,8 +62,12 @@ def main(argv=None) -> list[dict]:
         pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq, seed=0)
     tcfg = TrainerConfig(n_steps=args.steps, ckpt_every=max(args.steps // 2, 5),
                          ckpt_dir=args.ckpt_dir, log_every=5)
-    trainer = Trainer(model, pipe, tcfg)
-    trainer.run(callback=lambda s, m: print(f"step {s} loss {m['loss_mean']:.4f}"))
+    mesh = None
+    if args.data_parallel * args.model_parallel > 1:
+        mesh = make_local_mesh(args.data_parallel, args.model_parallel, device=args.device)
+    with use_mesh_rules(mesh, DEFAULT_RULES):          # no rules without a mesh
+        trainer = Trainer(model, pipe, tcfg)
+        trainer.run(callback=lambda s, m: print(f"step {s} loss {m['loss_mean']:.4f}"))
     return trainer.metrics_log
 
 

@@ -4,12 +4,23 @@ cross-attention: port of ``repro/models/attention.py``.
 The decode path writes the cache **in place** and returns it (the
 reference returns a new cache): a copy of a 30-layer cache every token
 would move as many bytes as the attention reads.
+
+Under an active mesh whose model axis M divides the query heads, the
+cache-free path (training, prefill, the cross-attention) is
+tensor-parallel as the reference's parameter rules shard it: model shard
+m holds the column blocks of ``wq``, ``wk`` and ``wv`` and the row block
+of ``wo`` for its H / M heads, attends over them on its device, and one
+psum follows ``wo``.  Where M does not divide the KV heads, K and V are
+computed whole (``wk``, ``wv`` replicated) and each shard takes the KV
+heads that its query heads read.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import broadcast, reduce_sum
+from repro_torch.distributed.sharding import shard_group
 from repro_torch.models.layers import apply_rope, attention, chunked_attention, init_dense
 
 
@@ -58,6 +69,10 @@ def attention_block(
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    group = shard_group("heads", cfg.n_heads) if cache is None else None
+    if group is not None:
+        return _attention_tp(params, x, positions, cfg, group, causal=causal,
+                             use_rope=use_rope, cross_kv=cross_kv), cache
     q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, hd)
     if cross_kv is not None:
         k, v = cross_kv
@@ -85,3 +100,51 @@ def attention_block(
         mask = (kpos <= pos[:, None])[:, None, None, :]          # [B, 1, 1, cap]
         out = attention(q, k_cache, v_cache, causal=False, mask=mask)
     return out.reshape(b, s, -1) @ params["wo"], cache
+
+
+def _attention_tp(params, x, positions, cfg: ArchConfig, group, *, causal: bool,
+                  use_rope: bool, cross_kv):
+    """The cache-free attention block split by heads over ``group`` (the
+    model axis of the current data shard): shard m's partial output
+    ``attn_m @ wo[rows_m]`` on its device, summed in rank order onto x's."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    m_size = group.size
+    h_loc = cfg.n_heads // m_size
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    split_kv = cross_kv is None and cfg.n_kv_heads % m_size == 0
+    if cross_kv is not None:
+        k_all, v_all = cross_kv
+    elif not split_kv:
+        # K and V replicated: computed whole on x's device, selected by head
+        k_all = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+        v_all = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+        if use_rope:
+            k_all = apply_rope(k_all, positions, cfg.rope_theta)
+    cols = h_loc * hd
+    wq, wo = params["wq"].split(cols, dim=-1), params["wo"].split(cols, dim=0)
+    if split_kv:
+        kv_cols = cfg.n_kv_heads // m_size * hd
+        wk, wv = params["wk"].split(kv_cols, dim=-1), params["wv"].split(kv_cols, dim=-1)
+    parts = []
+    for m, (dev, xm) in enumerate(zip(group.devices, broadcast(group, x))):
+        q = (xm @ wq[m].to(dev, non_blocking=True)).reshape(b, s, h_loc, hd)
+        if split_kv:
+            k = (xm @ wk[m].to(dev, non_blocking=True)).reshape(b, s, -1, hd)
+            v = (xm @ wv[m].to(dev, non_blocking=True)).reshape(b, s, -1, hd)
+        else:
+            # the KV head each of this shard's query heads reads (j // n_rep)
+            heads = torch.arange(m * h_loc, (m + 1) * h_loc, device=x.device) // n_rep
+            k = k_all[:, :, heads].to(dev, non_blocking=True)
+            v = v_all[:, :, heads].to(dev, non_blocking=True)
+        if cross_kv is not None:
+            out = attention(q, k, v, causal=False)
+        else:
+            pos = positions.to(dev, non_blocking=True)
+            if use_rope:
+                q = apply_rope(q, pos, cfg.rope_theta)
+                if split_kv:
+                    k = apply_rope(k, pos, cfg.rope_theta)
+            out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+        parts.append(out.reshape(b, s, -1) @ wo[m].to(dev, non_blocking=True))
+    return reduce_sum(parts, x.device)

@@ -6,11 +6,19 @@ Plain PyTorch that mirrors the reference's ``jnp`` operation for operation,
 including where it casts: the reference computes these outside any Pallas
 kernel, so the port has no kernel here either.  Weights keep the
 reference's ``[in, out]`` layout (``x @ w``).
+
+Under an active mesh whose model axis divides the hidden width,
+:func:`swiglu` is tensor-parallel as the reference's parameter rules shard
+it (``w1``/``w3`` by columns, ``w2`` by rows over ``ffn``): model shard m
+computes its block on its device and one psum follows ``w2``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.collectives import broadcast, reduce_sum
+from repro_torch.distributed.sharding import shard_group
 
 
 class _NoDraws:
@@ -54,7 +62,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
 
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w1) * (x @ w3)) @ w2
+    group = shard_group("ffn", w1.shape[-1])
+    if group is None:
+        return (F.silu(x @ w1) * (x @ w3)) @ w2
+    f = w1.shape[-1] // group.size
+    parts = [(F.silu(xm @ a.to(dev, non_blocking=True)) * (xm @ b.to(dev, non_blocking=True)))
+             @ c.to(dev, non_blocking=True)
+             for dev, xm, a, b, c in zip(group.devices, broadcast(group, x), w1.split(f, dim=-1),
+                                         w3.split(f, dim=-1), w2.split(f, dim=0))]
+    return reduce_sum(parts, x.device)
 
 
 # ---------------------------------------------------------------------------

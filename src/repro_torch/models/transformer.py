@@ -8,7 +8,8 @@ Python.  ``cfg.remat`` wraps each block in
 ``torch.utils.checkpoint.checkpoint`` when gradients are on (the
 reference's ``jax.checkpoint`` of the scan body): the backward keeps each
 block's input and recomputes the rest, the MoE block's aux loss among its
-outputs.
+outputs.  :func:`remat_call` makes each block recompute once, on one thread
+(see :class:`_RecomputeHere`).
 """
 from __future__ import annotations
 
@@ -21,6 +22,40 @@ from repro_torch.models.layers import init_dense, rms_norm, swiglu
 from repro_torch.models.mla import init_mla, mla_block
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.models.ssm import init_mamba, init_ssm_cache, mamba_block
+
+
+class _RecomputeHere(torch.autograd.Function):
+    """The identity, whose backward reads a tensor that the enclosing
+    checkpoint saved.  As a rematerialised block's last op its backward
+    runs before any other of the block's, on its output's device thread,
+    and recomputes the block there.  Without it, where a block's saved
+    tensors lie on several cards (the tensor-parallel blocks of a mesh that
+    spans cards), autograd's device threads may each start the recompute
+    at once, and the non-reentrant checkpoint's recompute is not
+    thread-safe: the threads' saved tensors interleave."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.saved_tensors                       # unpacking it recomputes the block
+        return g
+
+
+def remat_call(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` rematerialised in the backward (a
+    non-reentrant ``checkpoint``), recomputed once, on the thread of its
+    output's device (its first output's when it returns a tuple)."""
+    def body(*a, **kw):
+        out = fn(*a, **kw)
+        if isinstance(out, tuple):
+            return (_RecomputeHere.apply(out[0]), *out[1:])
+        return _RecomputeHere.apply(out)
+
+    return checkpoint(body, *args, use_reentrant=False, **kwargs)
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype, *,
@@ -101,8 +136,7 @@ def stack_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchCon
         kw = dict(kind=kind, causal=causal, use_rope=use_rope,
                   cross_kv=None if cross_kv is None else (cross_kv[0][i], cross_kv[1][i]))
         if remat:
-            x, aux = checkpoint(block_forward, layer, x, positions, cfg, use_reentrant=False,
-                                **kw)
+            x, aux = remat_call(block_forward, layer, x, positions, cfg, **kw)
         else:
             layer_cache = None if cache is None else {n: c[i] for n, c in cache.items()}
             x, aux = block_forward(layer, x, positions, cfg, cache=layer_cache,
@@ -162,8 +196,7 @@ def hybrid_forward(params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchCo
     shared = params.get("shared")
     for idx, layer in enumerate(params["mamba"]):
         if remat:
-            x = checkpoint(_hybrid_layer, layer, shared, x, positions, cfg, idx,
-                           use_reentrant=False)
+            x = remat_call(_hybrid_layer, layer, shared, x, positions, cfg, idx)
         else:
             x = _hybrid_layer(layer, shared, x, positions, cfg, idx, cache, cache_pos)
     return x, cache

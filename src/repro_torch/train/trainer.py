@@ -12,6 +12,15 @@
 The reference jits the step with its buffers donated; the port's step
 updates the parameters and the optimizer state in place, which is its
 donation (``donate`` is kept for the signature).
+
+Built under active mesh rules (``distributed.sharding.use_mesh_rules``
+with a ``launch.mesh.DeviceMesh``, as ``launch.train`` builds it), the
+trainer runs the sharded step (``train.step``) on that mesh.  Its state is
+then the parameters and optimizer state of data shard 0, whole on the
+mesh's first device: a checkpoint saves those full leaves (the
+reference's gathers its sharded leaves), and a restore hands them back
+to the step, which copies them to every other card of the data axis; a
+resume is bit for bit on the mesh as on one device.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.sharding import active_rules
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import make_opt_init, make_train_step, opt_config_for
@@ -49,7 +59,9 @@ class Trainer:
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg or opt_config_for(model.cfg)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
-        self.train_step = make_train_step(model, self.opt_cfg)
+        rules = active_rules()
+        self.mesh = rules.mesh if rules is not None and hasattr(rules.mesh, "group") else None
+        self.train_step = make_train_step(model, self.opt_cfg, mesh=self.mesh)
         self.opt_init = make_opt_init(model, self.opt_cfg)
         self.metrics_log: list[dict] = []
 

@@ -511,15 +511,24 @@ def test_update_router_bias_on_the_reference_tree():
 
 
 # ------------------------------------------------------- entry points -----
-def test_launch_train_on_cpu(tmp_path, capsys):
+def test_launch_train_on_cpu(tmp_path, capsys, monkeypatch):
     log = launch_train.main(["--arch", "phi4_mini_3p8b", "--reduced", "--steps", "4",
                              "--batch", "2", "--seq", "16", "--device", "cpu",
                              "--ckpt_dir", str(tmp_path)])
     assert [m["step"] for m in log] == [4] and np.isfinite(log[0]["loss_mean"])
     assert "step 4 loss" in capsys.readouterr().out
     assert (tmp_path / "step_0000000004" / "manifest.json").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        launch_train.main(["--data_parallel", "2", "--device", "cpu"])
+    # on a 2 x 2 mesh of CPU shards: the single-device run's losses (the
+    # sharded step sums in another order: bf16 compute, one bf16 epsilon)
+    monkeypatch.setenv("REPRO_TORCH_MESH_DEVICES", "4")
+    argv = ["--arch", "deepseek_7b", "--reduced", "--steps", "2", "--batch", "4", "--seq", "16",
+            "--device", "cpu"]
+    one = launch_train.main(argv + ["--ckpt_dir", str(tmp_path / "one")])
+    mesh = launch_train.main(argv + ["--data_parallel", "2", "--model_parallel", "2",
+                                     "--ckpt_dir", str(tmp_path / "mesh")])
+    assert [m["step"] for m in mesh] == [m["step"] for m in one] == [2]
+    np.testing.assert_allclose([m["loss_mean"] for m in mesh], [m["loss_mean"] for m in one],
+                               rtol=BF16_EPS)
     # the vlm family trains through FrontendPipeline's patches
     log = launch_train.main(["--arch", "llava_next_34b", "--reduced", "--steps", "2",
                              "--batch", "2", "--seq", "16", "--device", "cpu",
